@@ -7,8 +7,9 @@ is PyTorch; the fused FiLM-SIREN field (the Pallas kernel of
 fenerf_tpu/ops/film_mlp.py) is a hand-written sm_90a CUDA kernel
 (ops/csrc/film_mlp.cu), built at first use.
 
-This package never imports JAX. It may import the JAX-free helpers of
-fenerf_tpu (e.g. fenerf_tpu.utils.image) as they are.
+This package imports neither JAX nor anything of fenerf_tpu, not even a
+module there that is free of JAX: what it needs, it keeps its own copy of.
+Only the parity tests import both packages.
 """
 
 __version__ = "0.1.0"

@@ -215,7 +215,7 @@ def encode_png(img: np.ndarray) -> bytes:
 def make_server(render_np, meta, port: int = 8798, host: str = "127.0.0.1"):
     import contextlib
 
-    from fenerf_tpu.utils.image import depth_to_jet, mask2color, to_uint8
+    from fenerf_tpu_torch.utils.image import depth_to_jet, mask2color, to_uint8
 
     # batched mode: the batcher's worker owns all device work, so handlers
     # run concurrently (a lock would feed it one request at a time)

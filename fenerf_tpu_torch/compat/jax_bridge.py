@@ -65,3 +65,20 @@ def to_numpy_tree(tree: Any) -> Any:
             t = t.to(torch.float32)
         return t.numpy()
     return tree_map(conv, tree)
+
+
+TRAIN_PARAMS = ("g_params", "d_img_params", "d_seg_params")
+
+
+def train_params_from_numpy(state: Any, device="cpu") -> dict:
+    """The three networks of a JAX TrainState (an object with numpy-leaf
+    trees as attributes g_params, d_img_params, d_seg_params, e.g.
+    jax.tree.map(np.asarray, state)) as torch trees on `device`."""
+    return {k: from_numpy_tree(getattr(state, k), device)
+            for k in TRAIN_PARAMS}
+
+
+def train_params_to_numpy(state: Any) -> dict:
+    """The three networks of a port TrainState as numpy trees in the JAX
+    layout, by the JAX TrainState's field names."""
+    return {k: to_numpy_tree(getattr(state, k)) for k in TRAIN_PARAMS}

@@ -1,5 +1,6 @@
-"""Trilinear 3D texture-grid sampling (port of fenerf_tpu/core/grid_sample.py,
-forward only).
+"""Trilinear 3D texture-grid sampling (port of fenerf_tpu/core/grid_sample.py:
+grid_sample_3d, the z-expanded table with its hand adjoint, and the table
+sampler).
 
 Semantics of torch.nn.functional.grid_sample(mode='bilinear',
 padding_mode='zeros', align_corners=True) on a (C, D, H, W) grid with
@@ -50,10 +51,7 @@ def grid_sample_3d(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return out.reshape(*batch_shape, c)
 
 
-def build_zexp_table(grid: torch.Tensor, table_dtype=None) -> torch.Tensor:
-    """The z-expanded gather table of `grid` (C, D, H, W):
-    ((D+1)(H+1)(W+1), 8C), row (z, y, x), column k*C + c holds
-    P[c, z+dz, y+dy, x+dx] of the zero-padded grid P, k = dz*4 + dy*2 + dx."""
+def _build_zexp_rows(grid: torch.Tensor, table_dtype=None) -> torch.Tensor:
     c, d, h, w = grid.shape
     p = torch.nn.functional.pad(grid, (1, 1, 1, 1, 1, 1))
     if table_dtype is not None:
@@ -64,6 +62,47 @@ def build_zexp_table(grid: torch.Tensor, table_dtype=None) -> torch.Tensor:
          for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)],
         dim=-1)
     return table.reshape((d + 1) * (h + 1) * (w + 1), 8 * c)
+
+
+def zexp_table_adjoint(dtable: torch.Tensor, grid_shape,
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """Exact adjoint of the (linear) table build: a table cotangent
+    ((D+1)(H+1)(W+1), 8C) -> the grid cotangent (C, D, H, W), as 8 shifted
+    slices summed in f32 whatever the table's dtype:
+    dgrid[c, z, y, x] = sum_k dtable[(z+1-dz, y+1-dy, x+1-dx), k*C + c]."""
+    c, d, h, w = grid_shape
+    dt = dtable.reshape(d + 1, h + 1, w + 1, 8 * c)
+    out = None
+    for k, (dz, dy, dx) in enumerate(
+            (dz, dy, dx) for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)):
+        t = dt[1 - dz:1 - dz + d, 1 - dy:1 - dy + h, 1 - dx:1 - dx + w,
+               k * c:(k + 1) * c].to(torch.float32)
+        out = t if out is None else out + t
+    return out.permute(3, 0, 1, 2).to(out_dtype).contiguous()
+
+
+class _BuildZexp(torch.autograd.Function):
+    """The table build with the hand adjoint as its backward (autograd's
+    own transpose would scatter through the 8x-expanded cotangent)."""
+
+    @staticmethod
+    def forward(ctx, grid, table_dtype):
+        ctx.grid_shape = tuple(grid.shape)
+        ctx.grid_dtype = grid.dtype
+        return _build_zexp_rows(grid, table_dtype)
+
+    @staticmethod
+    def backward(ctx, dtable):
+        return (zexp_table_adjoint(dtable, ctx.grid_shape, ctx.grid_dtype),
+                None)
+
+
+def build_zexp_table(grid: torch.Tensor, table_dtype=None) -> torch.Tensor:
+    """The z-expanded gather table of `grid` (C, D, H, W):
+    ((D+1)(H+1)(W+1), 8C), row (z, y, x), column k*C + c holds
+    P[c, z+dz, y+dy, x+dx] of the zero-padded grid P, k = dz*4 + dy*2 + dx.
+    Differentiable w.r.t. grid through zexp_table_adjoint."""
+    return _BuildZexp.apply(grid, table_dtype)
 
 
 def sample_zexp_table(table: torch.Tensor, grid_shape,

@@ -1,6 +1,6 @@
 """The volumetric generator for the FiLM-SIREN family (port of
 fenerf_tpu/models/generator.py: render_core, render, render_from_z,
-render_truncated).
+render_any, render_truncated).
 
 Pipeline: ray grid -> stratified jitter -> camera -> cam2world -> coarse
 field eval -> proposal weights -> sample_pdf -> fine field eval ->
@@ -11,6 +11,10 @@ uniforms, sigma noise) is drawn ONCE over the whole image, before the ray
 blocks are shaded, so chunked rendering equals whole-image rendering. The
 draws come from a torch.Generator on the device, or are passed in whole as
 `draws` (tests replay the JAX package's draws that way).
+
+Renders are differentiable (the trainer's G phase): no gradient flows
+through the proposal (coarse weights -> sample_pdf -> fine z), as in the
+JAX package and the reference.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from fenerf_tpu_torch.core import integrate as integ
 from fenerf_tpu_torch.core import rays as raylib
@@ -50,7 +55,10 @@ class RenderConfig:
     perturb: bool = True
     ray_chunk: int = 0          # 0 => whole image in one field eval
     compute_dtype: str = "float32"   # 'bfloat16': bf16 matmul operands
-    backend: str = "torch"      # 'kernel' => fused field (ops/film_mlp.py)
+    backend: str = "torch"      # 'kernel' => fused field (ops/film_mlp.py),
+                                # 'kernel_train' => fused forward + backward
+                                # (ops/film_mlp_grad.py)
+    remat: bool = False         # torch route: recompute the field in backward
 
     @property
     def n_rays(self) -> int:
@@ -124,6 +132,16 @@ def _shade_rays(field_fn, output_dim, rcfg, origins, dirs, z_vals,
         out = field_fn(pts.reshape(b, rb * s, 3), drs.reshape(b, rb * s, 3))
         return out.reshape(b, rb, s, output_dim)
 
+    if (rcfg.remat and rcfg.backend == "torch"
+            and torch.is_grad_enabled()):
+        # keep only the field's inputs for the backward; the kernel route
+        # already saves only its inputs
+        plain_eval = eval_pts
+
+        def eval_pts(pts, drs):
+            return torch.utils.checkpoint.checkpoint(
+                plain_eval, pts, drs, use_reentrant=False)
+
     points = origins[:, :, None, :] + dirs[:, :, None, :] * z_vals[..., None]
     dirs_exp = dirs[:, :, None, :].expand(points.shape)
     if rcfg.lock_view_dependence:
@@ -132,12 +150,14 @@ def _shade_rays(field_fn, output_dim, rcfg, origins, dirs, z_vals,
     coarse = eval_pts(points, dirs_exp)
 
     if rcfg.hierarchical:
+        # no gradient flows through the proposal (the reference samples it
+        # under no_grad)
         coarse_w = integ.integrate_weights(
-            coarse[..., -1], z_vals, noise=noise.coarse, noise_std=noise_std,
-            clamp_mode=rcfg.clamp_mode)
-        w = coarse_w + 1e-5
+            coarse[..., -1].detach(), z_vals, noise=noise.coarse,
+            noise_std=noise_std, clamp_mode=rcfg.clamp_mode)
+        w = coarse_w.detach() + 1e-5
         fine_z = integ.sample_pdf(integ.midpoints(z_vals), w[..., 1:-1],
-                                  rcfg.num_steps, u=noise.u)
+                                  rcfg.num_steps, u=noise.u).detach()
         fine_pts = (origins[:, :, None, :]
                     + dirs[:, :, None, :] * fine_z[..., None])
         fine = eval_pts(fine_pts, dirs_exp)
@@ -198,6 +218,7 @@ def _film_field_fn(params, fcfg, rcfg: RenderConfig, film_geo, film_app):
         from fenerf_tpu_torch.ops import film_mlp
 
         params = film_mlp.with_pack(params, fcfg)
+    # kernel_train packs the current parameters inside every field call
 
     def field_fn(pts, drs):
         return fields.apply_field(params, fcfg, pts, drs, film_geo, film_app,
@@ -281,6 +302,21 @@ def render_from_z(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,
     return render(params, fcfg, rcfg, film_geo, film_app,
                   batch_size=z_geo.shape[0], noise_std=noise_std,
                   generator=generator, draws=draws)
+
+
+def render_any(params, cfg, rcfg: RenderConfig, z_geo, z_app, noise_std=0.0,
+               camera: tuple | None = None,
+               generator: torch.Generator | None = None,
+               draws: RenderDraws | None = None):
+    """Family-generic z -> image render (the trainer's generator rollout).
+    Only the film family is ported."""
+    if not isinstance(cfg, fields.FieldConfig):
+        raise NotImplementedError(
+            f"render_any: only the film family is ported, not {cfg!r}")
+    film_geo, film_app = fields.field_film(params, cfg, z_geo, z_app)
+    return render(params, cfg, rcfg, film_geo, film_app,
+                  batch_size=z_geo.shape[0], noise_std=noise_std,
+                  camera=camera, generator=generator, draws=draws)
 
 
 def render_truncated(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,

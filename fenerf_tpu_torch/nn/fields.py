@@ -12,6 +12,8 @@ apply_field has two routes:
   backend='kernel'  the fused field of ops/film_mlp.py: the hand-written
                     CUDA kernel on CUDA tensors, its plain torch version on
                     CPU tensors. Grid features come from a bf16 table.
+  backend='kernel_train'  the same forward, differentiable through the
+                    fused backward of ops/film_mlp_grad.py.
 """
 from __future__ import annotations
 
@@ -309,15 +311,21 @@ def apply_field(params: Params, cfg: FieldConfig, points: torch.Tensor,
                 compute_dtype=torch.float32,
                 backend: str = "torch") -> torch.Tensor:
     """Evaluate the field at points (B, N, 3) -> (B, N, n_labels + rgb + 1)."""
-    if backend == "kernel":
+    if backend in ("kernel", "kernel_train"):
         from fenerf_tpu_torch.ops import film_mlp as film_mlp_ops
 
         warped = points * (2.0 / cfg.box_side) if cfg.box_side else points
         gf = None
         if cfg.grid_channels:
             # bf16 table: the kernel rounds the features to bf16 at its
-            # first color matmul anyway
+            # first color matmul anyway; the gather stays differentiable,
+            # so the features' cotangent reaches the table
             gf = _grid_feats(params, warped, torch.bfloat16)
+        if backend == "kernel_train":
+            from fenerf_tpu_torch.ops.film_mlp_grad import film_mlp_trainable
+
+            return film_mlp_trainable(params, cfg, warped, ray_dirs, gf,
+                                      film_geo, film_app)
         pack = film_mlp_ops.get_pack(params, cfg)
         return film_mlp_ops.film_mlp(pack, warped, ray_dirs, gf, film_geo,
                                      film_app)

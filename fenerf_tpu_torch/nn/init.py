@@ -55,3 +55,20 @@ def linear(gen, fan_in, fan_out, weight_init, device) -> dict:
         "w": weight_init(gen, fan_in, fan_out, device),
         "b": uniform(gen, (fan_out,), 1.0 / math.sqrt(fan_in), device),
     }
+
+
+def conv2d(gen, in_ch, out_ch, ksize, device) -> dict:
+    """Conv params {'w': (kh, kw, in, out) HWIO, 'b': (out,)} with torch's
+    default init: U(+-1/sqrt(fan_in)) for both."""
+    bound = 1.0 / math.sqrt(in_ch * ksize * ksize)
+    return {"w": uniform(gen, (ksize, ksize, in_ch, out_ch), bound, device),
+            "b": uniform(gen, (out_ch,), bound, device)}
+
+
+def conv2d_kaiming_leaky(gen, in_ch, out_ch, ksize, device, a=0.2) -> dict:
+    """HWIO conv with kaiming_normal(fan_in, leaky_relu a) weights and the
+    torch-default bias."""
+    fan_in = in_ch * ksize * ksize
+    std = math.sqrt(2.0 / (1.0 + a * a) / fan_in)
+    return {"w": normal(gen, (ksize, ksize, in_ch, out_ch), device) * std,
+            "b": uniform(gen, (out_ch,), 1.0 / math.sqrt(fan_in), device)}

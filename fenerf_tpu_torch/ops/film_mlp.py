@@ -24,17 +24,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Any
 
 import torch
 
 from fenerf_tpu_torch.nn.fields import FieldConfig
+from fenerf_tpu_torch.ops import build
 from fenerf_tpu_torch.ops.fast_math import fast_sin
 
 # on-chip buffers a layer reads or writes (ops/csrc/film_mlp.cu)
@@ -62,11 +57,23 @@ def supported(cfg: Any) -> bool:
             and cfg.output_dim <= 256)
 
 
-def backend_for(cfg: Any, device) -> str:
-    """THE film-family dispatch policy: 'kernel' when the tensors live on
-    CUDA and the variant is covered, else the layer-by-layer 'torch' path."""
+def supported_train(cfg: Any) -> bool:
+    """Variants the fused backward (ops/film_mlp_grad.py) covers, as in the
+    JAX package: the forward's, with ray directions, without grid features
+    in the trunk and without a FiLM label head."""
+    return (supported(cfg) and cfg.use_ray_dir
+            and not (cfg.grid_channels and cfg.grid_to == "trunk")
+            and not cfg.label_film)
+
+
+def backend_for(cfg: Any, device, train: bool = False) -> str:
+    """THE film-family dispatch policy: on CUDA and for a covered variant,
+    'kernel' (forward only) or, with train=True, 'kernel_train' (fused
+    forward and backward); else the layer-by-layer 'torch' path."""
     if torch.device(device).type != "cuda":
         return "torch"
+    if train:
+        return "kernel_train" if supported_train(cfg) else "torch"
     return "kernel" if supported(cfg) else "torch"
 
 
@@ -248,19 +255,20 @@ def get_pack(params: Any, cfg: FieldConfig) -> FilmPack:
     return found if found is not None else pack(params, cfg)
 
 
-def _film_tables(p: FilmPack, film_geo, film_app, batch: int):
+def _film_tables(cfg: FieldConfig, l_geo: int, l_app: int, film_geo,
+                 film_app, batch: int):
     """Raw (B, L*H) film -> transformed frequencies and phases (B, L, H),
-    each a fresh contiguous tensor (the kernel reads them 16 bytes at a
+    each a fresh contiguous tensor (the kernels read them 16 bytes at a
     time, so they must not be offset views)."""
-    cfg, h = p.cfg, p.cfg.hidden_dim
+    h = cfg.hidden_dim
     fg, pg = film_geo
     fa, pa = film_app
     fresh = lambda t, n: t.reshape(batch, n, h).clone(
         memory_format=torch.contiguous_format)
-    return (fresh(fg * cfg.freq_scale + cfg.freq_offset, p.l_geo),
-            fresh(pg, p.l_geo),
-            fresh(fa * cfg.freq_scale + cfg.freq_offset, p.l_app),
-            fresh(pa, p.l_app))
+    return (fresh(fg * cfg.freq_scale + cfg.freq_offset, l_geo),
+            fresh(pg, l_geo),
+            fresh(fa * cfg.freq_scale + cfg.freq_offset, l_app),
+            fresh(pa, l_app))
 
 
 def film_mlp_reference(p: FilmPack, points: torch.Tensor,
@@ -277,7 +285,8 @@ def film_mlp_reference(p: FilmPack, points: torch.Tensor,
     cfg = p.cfg
     g = cfg.grid_channels or 0
     bf = lambda t: t.to(torch.bfloat16).to(torch.float32)
-    fg, pg, fa, pa = _film_tables(p, film_geo, film_app, b)
+    fg, pg, fa, pa = _film_tables(cfg, p.l_geo, p.l_app, film_geo, film_app,
+                                  b)
     inb = points.new_zeros(rows, p.in_width)
     inb[:, IN_PTS:IN_PTS + 3] = points.reshape(rows, 3)
     inb[:, IN_DIRS:IN_DIRS + 3] = ray_dirs.reshape(rows, 3)
@@ -313,67 +322,33 @@ film_mlp_reference.calls = 0
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel: built with nvcc at first use, bound with ctypes
+# The CUDA kernel: built with nvcc at first use (ops/build.py), bound with
+# ctypes
 # ---------------------------------------------------------------------------
 
-_SRC = Path(__file__).with_name("csrc") / "film_mlp.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _LIB = None
-_LIB_LOCK = threading.Lock()
-BUILD_LOG: dict = {}
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME")
-    if home and (Path(home) / "bin" / "nvcc").exists():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
 def _load_library():
-    """Compile ops/csrc/film_mlp.cu for sm_90a into build/ (once per source
-    content) and load it."""
+    """ops/csrc/film_mlp.cu, built for sm_90a into build/ and loaded."""
     global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:16]
-        so = _BUILD_DIR / f"film_mlp_{tag}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOG["log"] = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{BUILD_LOG['log']}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+    if _LIB is None:
+        lib = build.library("film_mlp")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.film_mlp_forward.argtypes = [vp] * 10 + [ci] * 11 + [vp, vp]
         lib.film_mlp_forward.restype = ci
         lib.film_mlp_error_string.argtypes = [ci]
         lib.film_mlp_error_string.restype = ctypes.c_char_p
         _LIB = lib
-        return lib
+    return _LIB
 
 
-def _check(t: torch.Tensor, name: str, shape, dtype, device):
+def _check(t: torch.Tensor, name: str, shape, dtype, device,
+           who: str = "film_mlp"):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
         raise ValueError(
-            f"film_mlp: {name} must be a contiguous {dtype} tensor of shape "
+            f"{who}: {name} must be a contiguous {dtype} tensor of shape "
             f"{shape} on {device}; got {t.dtype} {tuple(t.shape)} on "
             f"{t.device} (contiguous={t.is_contiguous()})")
 
@@ -411,7 +386,8 @@ def film_mlp(p: FilmPack, points: torch.Tensor, ray_dirs: torch.Tensor,
         # rounding here halves the bytes it reads
         gf = grid_feats.to(torch.bfloat16).contiguous()
         _check(gf, "grid_feats", (b, n, g), torch.bfloat16, dev)
-    fg, pg, fa, pa = _film_tables(p, film_geo, film_app, b)
+    fg, pg, fa, pa = _film_tables(cfg, p.l_geo, p.l_app, film_geo, film_app,
+                                  b)
     for name, t, lyrs in (("film_geo", fg, p.l_geo), ("film_app", fa, p.l_app)):
         _check(t, name, (b, lyrs, cfg.hidden_dim), f32, dev)
     _check(pg, "film_geo phases", tuple(fg.shape), f32, dev)
