@@ -2,34 +2,52 @@
 
   python3 chip_smoke.py
 
-Drives the port's two main paths at the full width of the flagship model
+Drives the port's main paths at the full width of the flagship model
 TextureEmbeddingPiGAN256SEMANTICDISENTANGLE_DIM_96 with random weights from
 a seed: serving (fenerf_tpu_torch.apps.serve) through the hand-written CUDA
 field kernel (ops/csrc/film_mlp.cu), and GAN training
 (fenerf_tpu_torch.train.loop) through it and the hand-written backward
-kernels (ops/csrc/film_mlp_bwd.cu), all built here from the checkout.
+kernels (ops/csrc/film_mlp_bwd.cu) and the table-fold kernel
+(ops/csrc/zexp_fold.cu); and both again with the switch of the fused per-ray
+kernels on (FENERF_RAY_KERNELS=auto: ops/csrc/ray_finalize.cu). Every kernel
+is built here from the checkout.
 
 Phases (any failure exits non-zero):
   1. card and build: card name and power limit, torch / CUDA versions,
-     both kernel libraries built in parallel (one nvcc each);
+     all four kernel libraries built in parallel (one nvcc each);
   2. the forward kernel against its plain torch version at the serving
      shape (B=1, N=4096x48), a ragged one (N not a multiple of the tile)
      and the training renders' shape (B=6, N=32x32x24), max |diff| and the
      time of each side;
-  3. serving: a full-width .npz checkpoint, build_renderer at the serve
-     defaults, HTTP rgb / seg requests on a batch-1 server and 6 concurrent
-     requests on a --batch 4 server; the kernel must be launched and the
-     plain version never called; ms/request and rays/s;
-  4. one whole render through the kernel against the same render through
-     the plain version, and ray-chunked against whole-image rendering;
-  5. the backward kernels against their plain version at the G-phase shape
+  3. the ray kernels against their plain versions at the serving block
+     (B=1, R=4096, 48+48 samples, no noise), the training microbatch
+     (B=6, R=1024, 24+24, sigma noise) and a ragged shape: fine z, comp,
+     depth, weights_sum; kernel, plain and torch-route times; and
+     ray_finalize_vjp's cotangents against the torch route's autograd at
+     the training shape;
+  4. the fold kernel against its plain version at the flagship grid
+     (32 x 96^3) with an f32 and a bf16 cotangent: relative error, bitwise
+     equality, times; and the library call that computes the same fold
+     (a one-hot conv3d, f32);
+  5. serving, once per ray route (FENERF_RAY_KERNELS=never, then auto): a
+     full-width .npz checkpoint, build_renderer at the serve defaults, HTTP
+     rgb / seg requests on a batch-1 server and 6 concurrent requests on a
+     --batch 4 server; the kernels of the route launched (4 + 4 ray-kernel
+     launches per render with the switch on), no plain version called;
+     ms/request and rays/s of both routes;
+  6. one whole render through the field kernel against the same render
+     through its plain version; the ray kernels' render against the torch
+     route's; ray-chunked against whole-image rendering on both routes;
+  7. the backward kernels against their plain version at the G-phase shape
      (B=6, N=32x32x24) and a ragged one, per output group
      (ops/film_mlp_grad.py::bwd_agreement), and their times;
-  6. training: stage 0 of the flagship curriculum (bs 24, split 4, 32^2,
-     24+24 steps), TRAIN_STEPS steps on seeded synthetic reals; finite
-     losses, ms/step (median after the first), images/s, both kernels
-     launched and no plain version called;
-  7. G's gradient through the kernels against the torch route (bf16): the
+  8. training, with the ray kernels off and then on: stage 0 of the
+     flagship curriculum (bs 24, split 4, 32^2, 24+24 steps), TRAIN_STEPS
+     steps on seeded synthetic reals each; finite losses, ms/step (median
+     after the first), images/s, the launches per step of every kernel of
+     the route (24 film_mlp, 8 film_mlp_bwd, 1 fold_zexp; on, also 12
+     ray_resample and 12 ray_finalize), no plain version called;
+  9. G's gradient through the kernels against the torch route (bf16): the
      field's vector-Jacobian product at the G shape, held to the JAX
      package's criterion; and, printed as context, whole G-microbatch
      render gradients at the initial and the trained state.
@@ -39,6 +57,7 @@ Prints the card line, a JSON line of per-kernel results and, last,
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -90,6 +109,7 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def phase_card():
     from fenerf_tpu_torch.ops import build, film_mlp, film_mlp_grad
+    from fenerf_tpu_torch.ops import ray_finalize, zexp_fold
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -100,10 +120,10 @@ def phase_card():
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build.build(["film_mlp", "film_mlp_bwd"])
-    film_mlp._load_library()
-    film_mlp_grad._load_library()
-    log(f"[build] film_mlp and film_mlp_bwd ready in "
+    build.build(build.KERNELS)
+    for mod in (film_mlp, film_mlp_grad, ray_finalize, zexp_fold):
+        mod._load_library()
+    log(f"[build] {', '.join(build.KERNELS)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, out in build.BUILD_LOG.items():
         log(f"[build] {name}:\n{out.strip()}")
@@ -177,13 +197,16 @@ def phase_kernel(dev) -> dict:
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     """The least time the card could take: the larger of the operations
-    over the bf16 tensor-core peak and the bytes over the memory rate."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    over their peak (bf16 tensor cores unless given) and the bytes over the
+    memory rate."""
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -196,6 +219,265 @@ def _flops_per_point(cfg) -> int:
          + (3 + g + h) * h + (cfg.color_layers - 1) * h * h       # color
          + h * cfg.rgb_dim)
     return 2 * k
+
+
+@contextlib.contextmanager
+def ray_kernels(mode: str):
+    """FENERF_RAY_KERNELS=mode for the block (the port reads it at dispatch
+    time)."""
+    old = os.environ.get("FENERF_RAY_KERNELS")
+    os.environ["FENERF_RAY_KERNELS"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("FENERF_RAY_KERNELS", None)
+        else:
+            os.environ["FENERF_RAY_KERNELS"] = old
+
+
+def _counted():
+    """(kernel wrappers by name, plain versions) of every kernel."""
+    from fenerf_tpu_torch.ops import film_mlp, film_mlp_grad
+    from fenerf_tpu_torch.ops import ray_finalize as rf
+    from fenerf_tpu_torch.ops import zexp_fold as zf
+
+    return ({"film_mlp": film_mlp.film_mlp,
+             "film_mlp_bwd": film_mlp_grad.film_mlp_bwd,
+             "ray_resample": rf.ray_resample, "ray_finalize": rf.ray_finalize,
+             "fold_zexp": zf.fold_zexp},
+            (film_mlp.film_mlp_reference,
+             film_mlp_grad.film_mlp_bwd_reference, rf.ray_resample_reference,
+             rf.ray_finalize_reference, zf.fold_zexp_reference))
+
+
+def zero_counts():
+    kernels, plain = _counted()
+    for f in kernels.values():
+        f.launches = 0
+    for f in plain:
+        f.calls = 0
+
+
+def read_counts() -> tuple[dict, int]:
+    """(launches by kernel, plain-version calls in all)."""
+    kernels, plain = _counted()
+    return ({k: f.launches for k, f in kernels.items()},
+            sum(f.calls for f in plain))
+
+
+# kernel vs plain version, ray kernels: the same additions in the same
+# order, differing in exp / log / log1p and in the order of the compositing
+# sum over up to 96 terms (f32); the inverse CDF is continuous at bin edges,
+# so a flipped comparison moves a fine z only slightly
+RAY_TOL = 1e-4
+# ray_finalize_vjp's backward against the torch route's autograd: the same
+# torch graph on the same inputs
+VJP_TOL = 1e-6
+# fold kernel vs plain version, relative: the same eight f32 additions in
+# the same order (bit-exact expected)
+FOLD_TOL = 1e-6
+# the library's conv3d vs the plain fold, relative: the same eight terms
+# (and zeros) in the order of the algorithm cuDNN picks, f32 with TF32 off
+LIBRARY_FOLD_TOL = 1e-5
+# (label, B, R, S, sigma noise): one 4096-ray block of a 128^2 serve render
+# at 48 steps, one training microbatch (6 fakes, 32^2, 24 steps), a ragged
+# ray count
+RAY_SHAPES = (("serving", 1, 4096, 48, False), ("training", 6, 1024, 24, True),
+              ("ragged", 3, 1001, 37, True))
+N_OUT = 22   # the flagship field's outputs: 18 labels, rgb, sigma
+
+
+def _ray_inputs(gen, dev, b, r, s, c1=N_OUT):
+    """Stratified z in [0.88, 1.12], sigma with half the rays opaque, and a
+    maker of (B, R, n, c1) field outputs (channels in [0, 1), sigma last)."""
+    z0 = torch.linspace(0.88, 1.12, s, device=dev)
+    z = z0 + torch.rand(b, r, s, generator=gen, device=dev) * (0.24 / s)
+    level = torch.where(
+        torch.rand(b, r, 1, generator=gen, device=dev) < 0.5, 20.0, -5.0)
+    sigma = torch.randn(b, r, s, generator=gen, device=dev) * 10 + level
+
+    def outputs(n):
+        return torch.cat([
+            torch.rand(b, r, n, c1 - 1, generator=gen, device=dev),
+            torch.randn(b, r, n, 1, generator=gen, device=dev) * 10
+            + level[..., None]], dim=-1)
+
+    return z, sigma, outputs
+
+
+def phase_ray(dev) -> tuple[dict, dict]:
+    """The ray kernels against their plain versions at RAY_SHAPES, timed
+    beside the plain versions and the torch route they replace; and
+    ray_finalize_vjp's cotangents against the torch route's autograd.
+    Returns (ray_resample, ray_finalize) results: the serving block's
+    times and bound, the worst error over all shapes, each shape under
+    "shapes"."""
+    from fenerf_tpu_torch.core import integrate as integ
+    from fenerf_tpu_torch.ops import ray_finalize as rf
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows_rs, rows_fin = [], []
+    for label, b, r, s, noisy in RAY_SHAPES:
+        z, sigma, outputs = _ray_inputs(gen, dev, b, r, s)
+        randn = lambda n: torch.randn(b, r, n, generator=gen, device=dev)
+        nz_c, nz_f = (randn(s), randn(2 * s)) if noisy else (None, None)
+        u = torch.rand(b, r, s, generator=gen, device=dev)
+        fo, co = outputs(s), outputs(s)
+        fz = rf.ray_resample(sigma, z, nz_c, u)
+        fz_ref = rf.ray_resample_reference(sigma, z, nz_c, u)
+        fin = rf.ray_finalize(fo, co, fz, z, nz_f)
+        fin_ref = rf.ray_finalize_reference(fo, co, fz, z, nz_f)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (fz, *fin)):
+            raise AssertionError(f"ray kernels: non-finite output ({label})")
+        err_z = (fz - fz_ref).abs().max().item()
+        errs = [(a - p).abs().max().item() for a, p in zip(fin, fin_ref)]
+
+        def torch_resample():
+            w = integ.integrate_weights(sigma, z, noise=nz_c, noise_std=1.0)
+            return integ.sample_pdf(integ.midpoints(z), (w + 1e-5)[..., 1:-1],
+                                    s, u=u)
+
+        rs = {"ms": time_ms(lambda: rf.ray_resample(sigma, z, nz_c, u), 20),
+              "plain_ms": time_ms(lambda: rf.ray_resample_reference(
+                  sigma, z, nz_c, u), 5),
+              "torch_route_ms": time_ms(torch_resample, 5)}
+        fn = {"ms": time_ms(lambda: rf.ray_finalize(fo, co, fz, z, nz_f), 20),
+              "plain_ms": time_ms(lambda: rf.ray_finalize_reference(
+                  fo, co, fz, z, nz_f), 5),
+              "torch_route_ms": time_ms(lambda: integ.composite_merged_nosort(
+                  fo, co, fz, z, noise=nz_f, noise_std=1.0), 5)}
+        rows, t = b * r, 2 * s
+        # bytes: every input read once, every output written once; ops: a
+        # few dozen f32 operations per sample, 2 per channel and sample
+        rs["bound_ms"], rs["bound_by"] = bound_ms(
+            rows * s * 40, 4 * rows * s * (4 + noisy), PEAK_F32_FLOPS)
+        fn["bound_ms"], fn["bound_by"] = bound_ms(
+            rows * t * (2 * N_OUT + 30),
+            4 * rows * (t * (N_OUT + 1 + noisy) + N_OUT + 1), PEAK_F32_FLOPS)
+        log(f"[ray] {label} B={b} R={r} S={s}+{s} noise={noisy}: "
+            f"max|kernel-plain| fine z {err_z:.3e}, comp {errs[0]:.3e}, "
+            f"depth {errs[1]:.3e}, weights_sum {errs[2]:.3e} (tol {RAY_TOL})")
+        for name, d in (("ray_resample", rs), ("ray_finalize", fn)):
+            log(f"[ray] {label} {name}: kernel {d['ms']:.4f} ms, plain "
+                f"{d['plain_ms']:.4f} ms, torch route "
+                f"{d['torch_route_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
+                f"({d['bound_by']})")
+        if not max(err_z, *errs) <= RAY_TOL:
+            raise AssertionError(f"ray kernels disagree with plain ({label})")
+        rows_rs.append({"shape": label, "B": b, "R": r, "S": s,
+                        "max_abs_err": err_z, **rs})
+        rows_fin.append({"shape": label, "B": b, "R": r, "S": 2 * s,
+                         "max_abs_err": max(errs), **fn})
+        del fo, co, fin, fin_ref
+
+    # the VJP at the training shape: kernel forward, torch-route backward,
+    # against autograd through the torch route itself (noise_std 0.7)
+    b, r, s = 6, 1024, 24
+    z, _, outputs = _ray_inputs(gen, dev, b, r, s)
+    fz = torch.sort(z + torch.rand(b, r, s, generator=gen, device=dev)
+                    * 0.01, -1).values
+    nz = torch.randn(b, r, 2 * s, generator=gen, device=dev)
+    fo, co = outputs(s).requires_grad_(), outputs(s).requires_grad_()
+    cot = [torch.randn(b, r, N_OUT - 1, generator=gen, device=dev),
+           torch.randn(b, r, generator=gen, device=dev),
+           torch.randn(b, r, generator=gen, device=dev)]
+    dot = lambda outs: sum((o * g).sum() for o, g in zip(outs, cot))
+    g_k = torch.autograd.grad(dot(rf.ray_finalize_vjp(
+        fo, co, fz, z, nz * 0.7)), (fo, co))
+    res = integ.composite_merged_nosort(fo, co, fz, z, noise=nz,
+                                        noise_std=0.7)
+    g_t = torch.autograd.grad(dot((res.comp, res.depth, res.weights_sum)),
+                              (fo, co))
+    rel = max(((a - e).abs().max() / e.abs().max()).item()
+              for a, e in zip(g_k, g_t))
+    log(f"[ray] ray_finalize_vjp at B={b} R={r} S={s}+{s}: cotangents of "
+        f"fine_out / coarse_out vs the torch route's autograd, max|diff|/"
+        f"max|torch| {rel:.3e} (tol {VJP_TOL})")
+    if not rel <= VJP_TOL:
+        raise AssertionError("ray_finalize_vjp disagrees with the torch route")
+
+    def summary(rows_):
+        return {**rows_[0], "max_abs_err": max(x["max_abs_err"]
+                                               for x in rows_),
+                "library_ms": None, "shapes": rows_}
+
+    return summary(rows_rs), {**summary(rows_fin), "vjp_max_rel_err": rel}
+
+
+FOLD_GRID = (32, 96, 96, 96)   # the flagship texture grid (C, D, H, W)
+
+
+def _one_hot_fold_weight(c, dev):
+    """conv3d weight (C, 8C, 2, 2, 2) that folds the table: tap
+    (1-dz, 1-dy, 1-dx) of output channel c reads input channel k*C + c,
+    k = dz*4 + dy*2 + dx (the one-hot form the TPU kernel used)."""
+    wgt = torch.zeros(c, 8 * c, 2, 2, 2, device=dev)
+    ch = torch.arange(c, device=dev)
+    for k in range(8):
+        dz, dy, dx = (k >> 2) & 1, (k >> 1) & 1, k & 1
+        wgt[ch, k * c + ch, 1 - dz, 1 - dy, 1 - dx] = 1.0
+    return wgt
+
+
+def phase_fold(dev) -> dict:
+    """The fold kernel against its plain version at FOLD_GRID, with an f32
+    cotangent (the trainer's) and a bf16 one; with the f32 one also the
+    library call that computes the same fold, a conv3d of the table's
+    channels-last view with a one-hot weight. Returns the f32 case's times
+    and bound, the worst error, both cases under "shapes"."""
+    from fenerf_tpu_torch.ops import zexp_fold as zf
+
+    c, d, h, w = FOLD_GRID
+    rows = (d + 1) * (h + 1) * (w + 1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    wgt = _one_hot_fold_weight(c, dev)
+
+    def library(dt):
+        x = dt.view(1, d + 1, h + 1, w + 1, 8 * c).permute(0, 4, 1, 2, 3)
+        return torch.nn.functional.conv3d(x, wgt)[0]
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = torch.randn(rows, 8 * c, generator=gen, device=dev).to(dtype)
+        out = zf.fold_zexp(dt, FOLD_GRID)
+        ref = zf.fold_zexp_reference(dt, FOLD_GRID)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        exact = torch.equal(out, ref)
+        ms = time_ms(lambda: zf.fold_zexp(dt, FOLD_GRID), 20)
+        plain_ms = time_ms(lambda: zf.fold_zexp_reference(dt, FOLD_GRID), 5)
+        # bytes: the eight shifted D x H x W slices of the table the fold
+        # reads (each element at most once) and the f32 gradient it writes;
+        # ops: seven adds per output
+        nbytes = 8 * c * d * h * w * dt.element_size() + c * d * h * w * 4
+        bound, by = bound_ms(7 * c * d * h * w, nbytes, PEAK_F32_FLOPS)
+        name = str(dtype).replace("torch.", "")
+        log(f"[fold] {FOLD_GRID} {name} cotangent: max|kernel-plain|/max|plain|"
+            f" {rel:.3e} (tol {FOLD_TOL}), bitwise equal {exact}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}), {nbytes / ms / 1e6:.0f} GB/s")
+        if not rel <= FOLD_TOL:
+            raise AssertionError(f"fold kernel disagrees with plain ({name})")
+        case = {"dtype": name, "max_abs_err": err, "max_rel_err": rel,
+                "bitwise": exact, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
+        if dtype == torch.float32:   # a bf16 conv3d would write bf16
+            lib = library(dt)
+            lib_rel = ((lib - ref).abs().max() / ref.abs().max()).item()
+            case["library_ms"] = time_ms(lambda: library(dt), 5)
+            log(f"[fold] library call (conv3d, one-hot weight, f32): "
+                f"max|conv3d-plain|/max|plain| {lib_rel:.3e} (tol "
+                f"{LIBRARY_FOLD_TOL}); {case['library_ms']:.4f} ms")
+            if not lib_rel <= LIBRARY_FOLD_TOL:
+                raise AssertionError("the conv3d fold disagrees with plain")
+            del lib
+        cases.append(case)
+        del dt, out, ref
+    return {**cases[0], "max_abs_err": max(x["max_abs_err"] for x in cases),
+            "shapes": cases}
 
 
 def _get(url: str) -> bytes:
@@ -213,87 +495,106 @@ def _serve(render_np, meta):
     return srv, f"http://127.0.0.1:{srv.server_address[1]}"
 
 
-def phase_serve(dev, tmp) -> int:
+def write_checkpoint(dev, tmp) -> str:
     from fenerf_tpu_torch.apps.common import save_generator
-    from fenerf_tpu_torch.apps.serve import build_renderer
-    from fenerf_tpu_torch.ops import film_mlp
 
-    cfg, params, _ = _flagship_params(dev, seed=1)
+    _, params, _ = _flagship_params(dev, seed=1)
     ckpt = os.path.join(tmp, "generator.npz")
     t0 = time.perf_counter()
     save_generator(ckpt, params, params, params, FLAGSHIP, step=0)
     log(f"[serve] wrote full-width checkpoint "
         f"({os.path.getsize(ckpt) / 2**20:.0f} MiB) in "
         f"{time.perf_counter() - t0:.1f} s")
-    del params
+    return ckpt
+
+
+def phase_serve(ckpt, ray: str) -> dict:
+    """The serving path with FENERF_RAY_KERNELS=ray. Returns the launches
+    of each kernel over the whole phase, the renders, and ms/request."""
+    from fenerf_tpu_torch.apps.serve import build_renderer
+
     rays = SERVE["image_size"] ** 2
-
-    # --- the main path: counts from zero ---
-    film_mlp.film_mlp.launches = 0
-    film_mlp.film_mlp_reference.calls = 0
-
-    render_np, meta = build_renderer(ckpt, device="cuda", **SERVE)
-    if meta["backend"] != "kernel":
-        raise AssertionError(f"serving backend is {meta['backend']}")
-    t0 = time.perf_counter()
-    render_np(0, 0.0, 0.0, 0.7)
-    log(f"[serve] batch-1 warm-up render {time.perf_counter() - t0:.2f} s")
-    srv, base = _serve(render_np, meta)
-    try:
-        assert json.loads(_get(base + "/healthz"))["ok"] is True
-        for kind in ("rgb", "seg"):
-            body = _get(f"{base}/render?seed=3&yaw=0.2&psi=0.5&kind={kind}")
-            assert body[:8] == PNG_MAGIC, kind
-        a = _get(f"{base}/render?seed=5&yaw=-0.1&pitch=0.05")
-        b = _get(f"{base}/render?seed=5&yaw=-0.1&pitch=0.05")
-        assert a == b, "same request gave different bytes"
-        n_req = 5
+    tag = f"[serve ray={ray}]"
+    with ray_kernels(ray):
+        # --- the main path: counts from zero ---
+        zero_counts()
+        render_np, meta = build_renderer(ckpt, device="cuda", **SERVE)
+        if meta["backend"] != "kernel":
+            raise AssertionError(f"serving backend is {meta['backend']}")
+        want = "kernels" if ray == "auto" else "torch"
+        log(f"{tag} ray route: {meta['ray_route']} ({meta['ray_route_why']})")
+        if meta["ray_route"] != want:
+            raise AssertionError(f"ray route {meta['ray_route']}, not {want}")
         t0 = time.perf_counter()
-        for i in range(n_req):
-            assert _get(f"{base}/render?seed={i}&yaw={0.1 * i}")[:8] \
-                == PNG_MAGIC
-        dt = (time.perf_counter() - t0) / n_req
-        log(f"[serve] batch 1: {n_req} sequential rgb requests, "
-            f"{dt * 1e3:.1f} ms/request, {rays / dt:.0f} rays/s "
-            f"({SERVE['image_size']}^2, "
-            f"{SERVE['num_steps']}x{SERVE['ray_step_multiplier']} steps)")
-    finally:
-        srv.shutdown()
-        srv.server_close()
+        render_np(0, 0.0, 0.0, 0.7)
+        log(f"{tag} batch-1 warm-up render {time.perf_counter() - t0:.2f} s")
+        srv, base = _serve(render_np, meta)
+        try:
+            assert json.loads(_get(base + "/healthz"))["ok"] is True
+            for kind in ("rgb", "seg"):
+                body = _get(f"{base}/render?seed=3&yaw=0.2&psi=0.5&kind={kind}")
+                assert body[:8] == PNG_MAGIC, kind
+            a = _get(f"{base}/render?seed=5&yaw=-0.1&pitch=0.05")
+            b = _get(f"{base}/render?seed=5&yaw=-0.1&pitch=0.05")
+            assert a == b, "same request gave different bytes"
+            n_req = 5
+            t0 = time.perf_counter()
+            for i in range(n_req):
+                assert _get(f"{base}/render?seed={i}&yaw={0.1 * i}")[:8] \
+                    == PNG_MAGIC
+            dt = (time.perf_counter() - t0) / n_req
+            log(f"{tag} batch 1: {n_req} sequential rgb requests, "
+                f"{dt * 1e3:.1f} ms/request, {rays / dt:.0f} rays/s "
+                f"({SERVE['image_size']}^2, "
+                f"{SERVE['num_steps']}x{SERVE['ray_step_multiplier']} steps)")
+        finally:
+            srv.shutdown()
+            srv.server_close()
 
-    render_b, meta_b = build_renderer(ckpt, device="cuda", batch=4,
-                                      batch_wait_ms=50.0, **SERVE)
-    render_b(0, 0.0, 0.0, 0.7)  # warm-up
-    srv, base = _serve(render_b, meta_b)
-    try:
-        def get(i):
-            return _get(f"{base}/render?seed={i}&yaw={0.1 * i}"
-                        f"&pitch={0.02 * i}&psi={0.5 + 0.1 * (i % 3)}")
+        render_b, meta_b = build_renderer(ckpt, device="cuda", batch=4,
+                                          batch_wait_ms=50.0, **SERVE)
+        render_b(0, 0.0, 0.0, 0.7)  # warm-up
+        srv, base = _serve(render_b, meta_b)
+        try:
+            def get(i):
+                return _get(f"{base}/render?seed={i}&yaw={0.1 * i}"
+                            f"&pitch={0.02 * i}&psi={0.5 + 0.1 * (i % 3)}")
 
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=6) as ex:
-            bodies = list(ex.map(get, range(6)))
-        dt = time.perf_counter() - t0
-        assert all(x[:8] == PNG_MAGIC for x in bodies)
-        assert len(set(bodies)) > 1, "batched rows were not routed"
-        log(f"[serve] batch 4: 6 concurrent requests in {dt * 1e3:.1f} ms, "
-            f"{dt / 6 * 1e3:.1f} ms/request, {6 * rays / dt:.0f} rays/s")
-    finally:
-        srv.shutdown()
-        srv.server_close()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=6) as ex:
+                bodies = list(ex.map(get, range(6)))
+            dt4 = time.perf_counter() - t0
+            assert all(x[:8] == PNG_MAGIC for x in bodies)
+            assert len(set(bodies)) > 1, "batched rows were not routed"
+            log(f"{tag} batch 4: 6 concurrent requests in {dt4 * 1e3:.1f} ms, "
+                f"{dt4 / 6 * 1e3:.1f} ms/request, {6 * rays / dt4:.0f} rays/s")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        launches, plain = read_counts()
 
-    launches = film_mlp.film_mlp.launches
-    plain = film_mlp.film_mlp_reference.calls
-    log(f"[serve] film_mlp kernel launches {launches}, "
-        f"plain version calls {plain}")
-    if launches <= 0 or plain != 0:
-        raise AssertionError("serving did not run through the kernel alone")
-    log(f"[serve] peak device memory "
+    # a render is 4 ray blocks of 4096 rays, two field evaluations each
+    blocks = SERVE["image_size"] ** 2 // SERVE["ray_chunk"]
+    renders = launches["film_mlp"] // (2 * blocks)
+    ray_per_render = blocks if ray == "auto" else 0
+    log(f"{tag} launches {launches} over {renders} renders, plain-version "
+        f"calls {plain}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    if (renders <= 0 or launches["film_mlp"] != 2 * blocks * renders
+            or launches["ray_resample"] != ray_per_render * renders
+            or launches["ray_finalize"] != ray_per_render * renders
+            or plain != 0):
+        raise AssertionError(f"serving (ray={ray}) did not run through its "
+                             "kernels alone")
+    return {"launches": launches, "renders": renders,
+            "ms_per_request": dt * 1e3}
 
 
 def phase_render(dev):
+    """One whole 128^2 render at the serve defaults: the field kernel
+    against its plain version; the ray kernels (FENERF_RAY_KERNELS=auto)
+    against the torch route; ray-chunked against whole-image on both ray
+    routes."""
     from fenerf_tpu_torch.models import generator as gen
     from fenerf_tpu_torch.nn import fields
     from fenerf_tpu_torch.ops import film_mlp
@@ -311,7 +612,7 @@ def phase_render(dev):
     steps = SERVE["num_steps"] * SERVE["ray_step_multiplier"]
     camera = (math.pi / 2, math.pi / 2 + 0.2, SERVE["fov"])
 
-    def render(chunk, plain=False):
+    def render(chunk, plain=False, ray="never"):
         rcfg = gen.RenderConfig(
             img_size=SERVE["image_size"], num_steps=steps, fov=SERVE["fov"],
             fill_mode=SERVE["fill_mode"], ray_chunk=chunk,
@@ -325,31 +626,55 @@ def phase_render(dev):
                 gf = fields._grid_feats(params, warped, torch.bfloat16)
                 return film_mlp.film_mlp_reference(pack, warped, drs, gf,
                                                    fg, fa)
-        out = gen.render_core(
-            field_fn, cfg.output_dim, rcfg, 1, camera=camera,
-            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        with ray_kernels(ray):
+            out = gen.render_core(
+                field_fn, cfg.output_dim, rcfg, 1, camera=camera,
+                generator=torch.Generator(device=dev).manual_seed(0),
+                device=dev)
         torch.cuda.synchronize()
         return out
 
     kern = render(SERVE["ray_chunk"])
     plain = render(SERVE["ray_chunk"], plain=True)
     whole = render(0)
+    zero_counts()
+    ray = render(SERVE["ray_chunk"], ray="auto")
+    launches, n_plain = read_counts()
+    ray_whole = render(0, ray="auto")
     px = kern["pixels"]
-    if not (torch.isfinite(px).all() and px.shape == (
-            1, cfg.n_labels + 1 + 3, SERVE["image_size"],
-            SERVE["image_size"])):
-        raise AssertionError(f"bad render {tuple(px.shape)}")
-    opacity = kern["opacity"].mean().item()
+    for out in (kern, ray):
+        if not (torch.isfinite(out["pixels"]).all()
+                and out["pixels"].shape == (1, cfg.n_labels + 1 + 3,
+                                            SERVE["image_size"],
+                                            SERVE["image_size"])):
+            raise AssertionError(f"bad render {tuple(out['pixels'].shape)}")
     err = (px - plain["pixels"]).abs().max().item()
     chunk_err = (px - whole["pixels"]).abs().max().item()
-    log(f"[render] mean opacity {opacity:.3f}; max|kernel-plain| pixel "
-        f"{err:.3e} (tol {RENDER_TOL}); ray_chunk {SERVE['ray_chunk']} vs "
-        f"whole image max|diff| {chunk_err:.3e} "
+    log(f"[render] mean opacity {kern['opacity'].mean().item():.4f}; "
+        f"max|kernel-plain| pixel {err:.3e} (tol {RENDER_TOL}); ray_chunk "
+        f"{SERVE['ray_chunk']} vs whole image max|diff| {chunk_err:.3e} "
         f"(bit-exact: {torch.equal(px, whole['pixels'])})")
+    ray_err = (ray["pixels"] - px).abs().max().item()
+    log(f"[render] ray kernels: mean opacity "
+        f"{ray['opacity'].mean().item():.4f}; max|ray kernels - torch route| "
+        f"pixel {ray_err:.3e} (tol {RENDER_TOL}), depth "
+        f"{(ray['depth'] - kern['depth']).abs().max().item():.3e}, opacity "
+        f"{(ray['opacity'] - kern['opacity']).abs().max().item():.3e}; "
+        f"ray_chunk vs whole image bit-exact: "
+        f"{torch.equal(ray['pixels'], ray_whole['pixels'])}; launches of one "
+        f"render {launches}, plain-version calls {n_plain}")
     if not err <= RENDER_TOL:
         raise AssertionError(f"kernel render disagrees with plain: {err}")
-    if not torch.equal(px, whole["pixels"]):
+    if not ray_err <= RENDER_TOL:
+        raise AssertionError(f"ray-kernel render disagrees with the torch "
+                             f"route: {ray_err}")
+    if not (torch.equal(px, whole["pixels"])
+            and torch.equal(ray["pixels"], ray_whole["pixels"])):
         raise AssertionError("ray-chunked render differs from whole image")
+    blocks = SERVE["image_size"] ** 2 // SERVE["ray_chunk"]
+    if (launches["ray_resample"], launches["ray_finalize"], n_plain) != (
+            blocks, blocks, 0):
+        raise AssertionError(f"one render: {launches}, {n_plain} plain")
 
 
 # G's gradient, kernel route against the torch route at bf16: the JAX
@@ -447,10 +772,10 @@ def _synthetic_reals(gen, b, size, dev):
     return imgs.clamp(-1, 1), labels.float() * 2 - 1
 
 
-def phase_train(dev):
-    """TRAIN_STEPS steps of the flagship's stage 0 through the kernels.
-    Returns the launches of each kernel and the state after the steps."""
-    from fenerf_tpu_torch.ops import film_mlp, film_mlp_grad
+def phase_train(dev, ray_on: bool):
+    """TRAIN_STEPS steps of the flagship's stage 0 through the kernels,
+    with the ray kernels off or on. Returns ({launches by kernel,
+    ms/step}, the state after the steps)."""
     from fenerf_tpu_torch.train import loop
     from fenerf_tpu_torch.train.curriculum import CURRICULA
 
@@ -459,51 +784,56 @@ def phase_train(dev):
     state = loop.init_train_state(meta, seed=0, device="cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    tag = f"[train {'ray kernels' if ray_on else 'torch ray route'}]"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # --- the main path: counts from zero ---
-    film_mlp.film_mlp.launches = 0
-    film_mlp.film_mlp_reference.calls = 0
-    film_mlp_grad.film_mlp_bwd.launches = 0
-    film_mlp_grad.film_mlp_bwd_reference.calls = 0
-
     times = []
-    for step in range(TRAIN_STEPS):
-        imgs, labels = _synthetic_reals(gen, meta.batch_size, meta.img_size,
-                                        dev)
-        scal = loop.StepScalars(alpha=as_t(cur.alpha(step)),
-                                noise_std=as_t(meta.nerf_noise(step)),
-                                topk_frac=as_t(meta.topk_fraction(step)))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = loop.train_step(state, imgs, labels, scal, meta,
-                                   generator=gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses = {k: float(m[k]) for k in ("d_img_loss", "d_seg_loss",
-                                           "g_loss", "fake_opacity")}
-        log(f"[train] step {step}: " + " ".join(
-            f"{k} {v:.5f}" for k, v in losses.items())
-            + f" ({times[-1] * 1e3:.1f} ms)")
-        if not all(math.isfinite(v) for v in losses.values()):
-            raise AssertionError(f"non-finite loss at step {step}")
-    counts = {"film_mlp": film_mlp.film_mlp.launches,
-              "film_mlp_bwd": film_mlp_grad.film_mlp_bwd.launches}
-    plain = (film_mlp.film_mlp_reference.calls
-             + film_mlp_grad.film_mlp_bwd_reference.calls)
+    with ray_kernels("auto" if ray_on else "never"):
+        # --- the main path: counts from zero ---
+        zero_counts()
+        for step in range(TRAIN_STEPS):
+            imgs, labels = _synthetic_reals(gen, meta.batch_size,
+                                            meta.img_size, dev)
+            scal = loop.StepScalars(alpha=as_t(cur.alpha(step)),
+                                    noise_std=as_t(meta.nerf_noise(step)),
+                                    topk_frac=as_t(meta.topk_fraction(step)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = loop.train_step(state, imgs, labels, scal, meta,
+                                       generator=gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses = {k: float(m[k]) for k in ("d_img_loss", "d_seg_loss",
+                                               "g_loss", "fake_opacity")}
+            log(f"{tag} step {step}: " + " ".join(
+                f"{k} {v:.5f}" for k, v in losses.items())
+                + f" ({times[-1] * 1e3:.1f} ms)")
+            if not all(math.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"non-finite loss at step {step}")
+        counts, plain = read_counts()
     ms = statistics.median(times[1:]) * 1e3
-    log(f"[train] {TEXTURE} stage 0 (bs {meta.batch_size}, split "
+    # renders per step: D_img, D_seg and G, one per microbatch, each one
+    # ray block (no ray_chunk in training) and two field evaluations
+    renders = 3 * meta.batch_split
+    on = int(ray_on)
+    per_step = {"film_mlp": 2 * renders, "film_mlp_bwd": 2 * meta.batch_split,
+                "ray_resample": on * renders, "ray_finalize": on * renders,
+                "fold_zexp": 1}
+    log(f"{tag} {TEXTURE} stage 0 (bs {meta.batch_size}, split "
         f"{meta.batch_split}, {meta.img_size}^2, {meta.num_steps}+"
         f"{meta.num_steps} steps): {ms:.1f} ms/step (median of steps 2-"
         f"{TRAIN_STEPS}; range {min(times[1:]) * 1e3:.1f}-"
         f"{max(times[1:]) * 1e3:.1f}), {meta.batch_size / ms * 1e3:.2f} "
-        f"images/s; launches {counts}, plain-version calls {plain}; peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if min(counts.values()) <= 0 or plain != 0:
-        raise AssertionError("training did not run through the kernels "
-                             "alone")
-    return counts, state
+        f"images/s; launches {counts} (per step "
+        f"{ {k: v / TRAIN_STEPS for k, v in counts.items()} }), "
+        f"plain-version calls {plain}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != {k: v * TRAIN_STEPS for k, v in per_step.items()} \
+            or plain != 0:
+        raise AssertionError(f"training did not run through the kernels "
+                             f"alone: expected {per_step} per step")
+    return {"launches": counts, "ms_per_step": ms}, state
 
 
 def _grad_compare(x, y):
@@ -652,24 +982,53 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_card()
     kern = phase_kernel(dev)
+    resample, finalize = phase_ray(dev)
+    fold = phase_fold(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        serve_launches = phase_serve(dev, tmp)
+        ckpt = write_checkpoint(dev, tmp)
+        serve = {ray: phase_serve(ckpt, ray) for ray in ("never", "auto")}
+    log(f"[serve] batch-1 ms/request, ray kernels off / on: "
+        f"{serve['never']['ms_per_request']:.1f} / "
+        f"{serve['auto']['ms_per_request']:.1f}")
     phase_render(dev)
     bwd = phase_backward(dev)
-    train_launches, trained = phase_train(dev)
+    train_off, trained = phase_train(dev, ray_on=False)
+    train_on, _ = phase_train(dev, ray_on=True)
+    log(f"[train] ms/step, ray kernels off / on: "
+        f"{train_off['ms_per_step']:.1f} / {train_on['ms_per_step']:.1f}")
     phase_grad(dev, CURRICULA[TEXTURE].at_step(0), (trained, TRAIN_STEPS))
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f} s")
+
+    def launches(name):
+        """Launches on the main paths: serving (both ray routes) and
+        training (ray kernels off and on)."""
+        by_path = {"serve": sum(r["launches"][name] for r in serve.values()),
+                   "train": (train_off["launches"][name]
+                             + train_on["launches"][name])}
+        return {"launches": sum(by_path.values()),
+                "launches_serve": by_path["serve"],
+                "launches_train": by_path["train"]}
+
+    src = "fenerf_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "film_mlp", "route": "cuda",
-         "source": "fenerf_tpu_torch/ops/csrc/film_mlp.cu",
+        {"name": "film_mlp", "route": "cuda", "source": src + "film_mlp.cu",
          "replaces": "fenerf_tpu/ops/film_mlp.py:128",
-         "launches": serve_launches + train_launches["film_mlp"],
-         "launches_serve": serve_launches,
-         "launches_train": train_launches["film_mlp"], **kern},
+         **launches("film_mlp"), **kern},
         {"name": "film_mlp_bwd", "route": "cuda",
-         "source": "fenerf_tpu_torch/ops/csrc/film_mlp_bwd.cu",
+         "source": src + "film_mlp_bwd.cu",
          "replaces": "fenerf_tpu/ops/film_mlp_grad.py:85",
-         "launches": train_launches["film_mlp_bwd"], **bwd}]}))
+         **launches("film_mlp_bwd"), **bwd},
+        {"name": "ray_resample", "route": "cuda",
+         "source": src + "ray_finalize.cu",
+         "replaces": "fenerf_tpu/ops/ray_finalize.py:97",
+         **launches("ray_resample"), **resample},
+        {"name": "ray_finalize", "route": "cuda",
+         "source": src + "ray_finalize.cu",
+         "replaces": "fenerf_tpu/ops/ray_finalize.py:221",
+         **launches("ray_finalize"), **finalize},
+        {"name": "fold_zexp", "route": "cuda", "source": src + "zexp_fold.cu",
+         "replaces": "fenerf_tpu/ops/zexp_fold.py:46",
+         **launches("fold_zexp"), **fold}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

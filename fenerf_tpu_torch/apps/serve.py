@@ -113,10 +113,12 @@ def build_renderer(ckpt: str, image_size: int, num_steps: int,
             generator=torch.Generator(device=dev).manual_seed(0))
         return out["pixels"].cpu().numpy(), out["depth"].cpu().numpy()
 
+    ray_route, ray_why = gen.ray_route(rcfg, dev)
     meta = {"model": config.get("model"), "family": config.get("family"),
             "step": config.get("step"), "image_size": image_size,
             "num_steps": steps, "n_labels": int(fcfg.n_labels or 0),
             "ema": bool(use_ema), "backend": rcfg.backend,
+            "ray_route": ray_route, "ray_route_why": ray_why,
             "device": str(dev)}
     if batch > 1:
         meta["batch"] = batch
@@ -307,6 +309,7 @@ def main(argv=None):
         args.fov, args.fill_mode, args.fill_color, args.ray_chunk,
         args.use_ema, batch=args.batch, batch_wait_ms=args.batch_wait_ms,
         device=args.device)
+    print(f"[serve] ray route: {meta['ray_route']} ({meta['ray_route_why']})")
     t0 = time.perf_counter()
     render_np(0, 0.0, 0.0, 0.7)  # build the kernel and warm before traffic
     print(f"warmed in {time.perf_counter() - t0:.1f}s "

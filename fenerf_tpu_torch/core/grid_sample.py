@@ -67,9 +67,30 @@ def _build_zexp_rows(grid: torch.Tensor, table_dtype=None) -> torch.Tensor:
 def zexp_table_adjoint(dtable: torch.Tensor, grid_shape,
                        out_dtype=torch.float32) -> torch.Tensor:
     """Exact adjoint of the (linear) table build: a table cotangent
-    ((D+1)(H+1)(W+1), 8C) -> the grid cotangent (C, D, H, W), as 8 shifted
-    slices summed in f32 whatever the table's dtype:
-    dgrid[c, z, y, x] = sum_k dtable[(z+1-dz, y+1-dy, x+1-dx), k*C + c]."""
+    ((D+1)(H+1)(W+1), 8C) -> the grid cotangent (C, D, H, W):
+    dgrid[c, z, y, x] = sum_k dtable[(z+1-dz, y+1-dy, x+1-dx), k*C + c],
+    summed in f32 whatever the table's dtype.
+
+    A CPU tensor takes the slice fold (zexp_table_adjoint_torch); any other
+    goes to the fold kernel (ops/zexp_fold.py::fold_zexp), which the card
+    holds bit-exact to the slice fold. Unlike the JAX package, whose kernel
+    is behind a switch and which warns and falls back to its slice fold for
+    a non-f32 out_dtype, the port does not fall back: a non-f32 out_dtype
+    off the CPU raises ValueError."""
+    if dtable.device.type == "cpu":
+        return zexp_table_adjoint_torch(dtable, grid_shape, out_dtype)
+    if out_dtype != torch.float32:
+        raise ValueError(f"zexp_table_adjoint on {dtable.device}: the fold "
+                         f"kernel writes float32, not {out_dtype}")
+    from fenerf_tpu_torch.ops.zexp_fold import fold_zexp
+
+    return fold_zexp(dtable, grid_shape)
+
+
+def zexp_table_adjoint_torch(dtable: torch.Tensor, grid_shape,
+                             out_dtype=torch.float32) -> torch.Tensor:
+    """The fold as 8 shifted slices summed in f32 in the order k = 0..7
+    (the torch route, and the fold kernel's plain version)."""
     c, d, h, w = grid_shape
     dt = dtable.reshape(d + 1, h + 1, w + 1, 8 * c)
     out = None

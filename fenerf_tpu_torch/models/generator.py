@@ -5,6 +5,8 @@ render_any, render_truncated).
 Pipeline: ray grid -> stratified jitter -> camera -> cam2world -> coarse
 field eval -> proposal weights -> sample_pdf -> fine field eval ->
 order-independent merge + compositing -> fill -> NCHW pixels in [-1, 1].
+With FENERF_RAY_KERNELS (see ray_route) the machinery between the two field
+evaluations runs in the fused per-ray kernels of ops/ray_finalize.py.
 
 Randomness: every draw of a render (stratified jitter, camera, importance
 uniforms, sigma noise) is drawn ONCE over the whole image, before the ray
@@ -19,6 +21,7 @@ JAX package and the reference.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import torch
@@ -119,6 +122,34 @@ def draw_render(gen: torch.Generator, batch: int, rcfg: RenderConfig,
     return RenderDraws(jitter, cam_h, cam_v, noise)
 
 
+RAY_KERNEL_MODES = ("never", "auto")
+
+
+def ray_route(rcfg: RenderConfig, device) -> tuple[str, str]:
+    """Which route runs the hierarchical machinery between the two field
+    evaluations: ("kernels", why) for the fused per-ray kernels
+    (ops/ray_finalize.py), else ("torch", why).
+
+    FENERF_RAY_KERNELS, read at every call: 'never' (default, as in the
+    JAX package) or 'auto' (the kernels when the field backend is
+    kernel / kernel_train and the rays are on CUDA)."""
+    mode = os.environ.get("FENERF_RAY_KERNELS", "never")
+    if mode not in RAY_KERNEL_MODES:
+        raise ValueError(f"FENERF_RAY_KERNELS={mode!r}: expected one of "
+                         f"{RAY_KERNEL_MODES}")
+    why = f"FENERF_RAY_KERNELS={mode}, field backend {rcfg.backend}"
+    if mode == "never" or not rcfg.hierarchical \
+            or rcfg.backend not in ("kernel", "kernel_train"):
+        return "torch", why
+    if rcfg.num_steps < 3:
+        # the resample needs at least one interior proposal weight
+        return "torch", f"{why}, num_steps {rcfg.num_steps} < 3"
+    dev = torch.device(device).type
+    if dev != "cuda":
+        return "torch", f"{why}, device {dev}"
+    return "kernels", f"{why}, device {dev}"
+
+
 def _shade_rays(field_fn, output_dim, rcfg, origins, dirs, z_vals,
                 noise: RayNoise, noise_std):
     """Coarse eval -> proposal weights -> importance resample -> fine eval
@@ -148,6 +179,28 @@ def _shade_rays(field_fn, output_dim, rcfg, origins, dirs, z_vals,
         dirs_exp = torch.zeros_like(points)
         dirs_exp[..., -1] = -1.0
     coarse = eval_pts(points, dirs_exp)
+
+    if ray_route(rcfg, z_vals.device)[0] == "kernels":
+        # the fused per-ray kernels: proposal + resample in one, merge +
+        # compositing in the other; fill stays once per image (render_core)
+        from fenerf_tpu_torch.ops import ray_finalize as rf
+
+        # the kernels take contiguous rows (ray blocks of B > 1 are views)
+        scale = lambda t: None if t is None else (t * noise_std).contiguous()
+        z_vals = z_vals.contiguous()
+        fine_z = rf.ray_resample(
+            coarse[..., -1].detach().contiguous(), z_vals,
+            scale(noise.coarse), noise.u.contiguous(),
+            clamp_mode=rcfg.clamp_mode).detach()
+        fine_pts = (origins[:, :, None, :]
+                    + dirs[:, :, None, :] * fine_z[..., None])
+        fine = eval_pts(fine_pts, dirs_exp)
+        return rf.ray_finalize_vjp(
+            fine.contiguous(), coarse.contiguous(), fine_z, z_vals,
+            scale(noise.final), clamp_mode=rcfg.clamp_mode,
+            last_back=rcfg.last_back, white_back=rcfg.white_back,
+            black_back=rcfg.black_back, fill_mode=None,
+            fill_color=rcfg.fill_color, softmax_label=False)
 
     if rcfg.hierarchical:
         # no gradient flows through the proposal (the reference samples it

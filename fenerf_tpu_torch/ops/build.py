@@ -17,6 +17,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
+# every kernel source of the port (ops/csrc/<name>.cu)
+KERNELS = ("film_mlp", "film_mlp_bwd", "ray_finalize", "zexp_fold")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 BUILD_LOG: dict[str, str] = {}   # name -> nvcc output of this process's build
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -11,7 +11,9 @@ weights, then:
     name, the fused field kernel's share, and the device's busy share of
     the traced window (kernel time / wall time; overlapping kernels would
     count twice, the port runs one stream).
---out writes the full table to a file.
+--out writes the full table to a file. The ray kernels follow
+FENERF_RAY_KERNELS as in the server (default off); run it once with each
+setting to compare.
 """
 from __future__ import annotations
 
@@ -57,9 +59,10 @@ def main(argv=None) -> int:
         ckpt = os.path.join(tmp, "generator.npz")
         save_generator(ckpt, params, params, params, FLAGSHIP, step=0)
         del params
-        render_np, _ = build_renderer(
+        render_np, meta = build_renderer(
             ckpt, 128, 24, 2, 12.0, "seg_padding_background", "black", 4096,
             True, device="cuda")
+    print(f"ray route: {meta['ray_route']} ({meta['ray_route_why']})")
 
     def request():
         return render_np(0, 0.1, 0.0, 0.7)

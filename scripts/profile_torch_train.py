@@ -6,6 +6,10 @@ synthetic reals).
 
   python scripts/profile_torch_train.py [--steps 5] [--out FILE]
 
+The ray kernels follow FENERF_RAY_KERNELS as in the trainer (default
+never); run it once with each setting to compare. The table fold runs its
+kernel on the card always.
+
 Prints:
   * ms per step on the host clock with a sync (median of --steps after a
     warm-up step);
@@ -69,6 +73,10 @@ def group_of(name: str) -> str:
         return "field forward kernel (film_mlp)"
     if any(k in n for k in ("bwd_rows_kernel", "dw_kernel", "reduce_kernel")):
         return "field backward kernels (film_mlp_bwd)"
+    if "ray_resample_kernel" in n or "ray_finalize_kernel" in n:
+        return "ray kernels (ray_resample, ray_finalize)"
+    if "fold_zexp_kernel" in n:
+        return "table-fold kernel (fold_zexp)"
     if any(k in n for k in ("conv", "cudnn", "xmma", "implicit", "wgrad",
                             "dgrad", "fprop", "nchw", "nhwc")):
         return "convolutions (cuDNN, D and its R1 / G gradients)"
@@ -91,6 +99,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    print("FENERF_RAY_KERNELS="
+          + os.environ.get("FENERF_RAY_KERNELS", "never"))
     cur = CURRICULA[TEXTURE]
     meta = cur.at_step(0)
     state = loop.init_train_state(meta, seed=0, device="cuda")
