@@ -9,12 +9,14 @@ field kernel (ops/csrc/film_mlp.cu), and GAN training
 (fenerf_tpu_torch.train.loop) through it and the hand-written backward
 kernels (ops/csrc/film_mlp_bwd.cu) and the table-fold kernel
 (ops/csrc/zexp_fold.cu); and both again with the switch of the fused per-ray
-kernels on (FENERF_RAY_KERNELS=auto: ops/csrc/ray_finalize.cu). Every kernel
-is built here from the checkout.
+kernels on (FENERF_RAY_KERNELS=auto: ops/csrc/ray_finalize.cu); and the
+ceiling-probe scripts (scripts/profile_torch_{mxu_chain,epilogue_overlap,
+dma_gather}.py) through their kernels (ops/csrc/mxu_chain.cu,
+ops/csrc/dma_gather.cu). Every kernel is built here from the checkout.
 
 Phases (any failure exits non-zero):
   1. card and build: card name and power limit, torch / CUDA versions,
-     all four kernel libraries built in parallel (one nvcc each);
+     all six kernel libraries built in parallel (one nvcc each);
   2. the forward kernel against its plain torch version at the serving
      shape (B=1, N=4096x48), a ragged one (N not a multiple of the tile)
      and the training renders' shape (B=6, N=32x32x24), max |diff| and the
@@ -50,7 +52,16 @@ Phases (any failure exits non-zero):
   9. G's gradient through the kernels against the torch route (bf16): the
      field's vector-Jacobian product at the G shape, held to the JAX
      package's criterion; and, printed as context, whole G-microbatch
-     render gradients at the initial and the trained state.
+     render gradients at the initial and the trained state;
+ 10. the ceiling probes: the three probe scripts at their full shapes (3 timed
+     calls per variant; every probe kernel launched, no plain version
+     called), then each probe kernel against its plain version at those
+     shapes (the chains at 11 layers and width 512; the FiLM epilogue at
+     the field's weight scale over 11 layers and on the script's draw over
+     1; the gather bit-exact with 2 KB and 512 B rows at two ring sizes,
+     and beside the chain), timed beside the plain version and the
+     library call (index_select; for the chains, the same torch.matmul
+     calls in a row, printed as context).
 
 Prints the card line, a JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -58,19 +69,23 @@ Prints the card line, a JSON line of per-kernel results and, last,
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
+
+from fenerf_tpu_torch.ops.probes import (PEAK_F32_FLOPS, bound_ms, card,
+                                         time_ms)
 
 FLAGSHIP = "TextureEmbeddingPiGAN256SEMANTICDISENTANGLE_DIM_96"
 # kernel vs plain version: both round every matmul operand to bf16 and
@@ -92,36 +107,19 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms (CUDA events, after warm-up)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_card():
-    from fenerf_tpu_torch.ops import build, film_mlp, film_mlp_grad
-    from fenerf_tpu_torch.ops import ray_finalize, zexp_fold
+    from fenerf_tpu_torch.ops import build, dma_gather, film_mlp
+    from fenerf_tpu_torch.ops import film_mlp_grad, mxu_chain, ray_finalize
+    from fenerf_tpu_torch.ops import zexp_fold
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     build.build(build.KERNELS)
-    for mod in (film_mlp, film_mlp_grad, ray_finalize, zexp_fold):
+    for mod in (film_mlp, film_mlp_grad, ray_finalize, zexp_fold, mxu_chain,
+                dma_gather):
         mod._load_library()
     log(f"[build] {', '.join(build.KERNELS)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -195,22 +193,6 @@ def phase_kernel(dev) -> dict:
             "library_ms": None, "shapes": shapes}
 
 
-# NVIDIA H100 SXM data sheet, dense, at the full 700 W
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores
-PEAK_HBM_BYTES = 3.35e12
-
-
-def bound_ms(flops: float, nbytes: float,
-             peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
-    """The least time the card could take: the larger of the operations
-    over their peak (bf16 tensor cores unless given) and the bytes over the
-    memory rate."""
-    t_ops = flops / peak_flops * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def _flops_per_point(cfg) -> int:
     """Matmul FLOPs of the folded field per point (unpadded shapes)."""
     h, g = cfg.hidden_dim, cfg.grid_channels
@@ -238,17 +220,22 @@ def ray_kernels(mode: str):
 
 def _counted():
     """(kernel wrappers by name, plain versions) of every kernel."""
+    from fenerf_tpu_torch.ops import dma_gather as dg
     from fenerf_tpu_torch.ops import film_mlp, film_mlp_grad
+    from fenerf_tpu_torch.ops import mxu_chain as mc
     from fenerf_tpu_torch.ops import ray_finalize as rf
     from fenerf_tpu_torch.ops import zexp_fold as zf
 
     return ({"film_mlp": film_mlp.film_mlp,
              "film_mlp_bwd": film_mlp_grad.film_mlp_bwd,
              "ray_resample": rf.ray_resample, "ray_finalize": rf.ray_finalize,
-             "fold_zexp": zf.fold_zexp},
+             "fold_zexp": zf.fold_zexp, "run_chain": mc.run_chain,
+             "run_wide": mc.run_wide, "run_epi": mc.run_epi,
+             "ring_dma_gather": dg.ring_dma_gather},
             (film_mlp.film_mlp_reference,
              film_mlp_grad.film_mlp_bwd_reference, rf.ray_resample_reference,
-             rf.ray_finalize_reference, zf.fold_zexp_reference))
+             rf.ray_finalize_reference, zf.fold_zexp_reference,
+             mc.chain_reference, mc.epi_reference, dg.gather_reference))
 
 
 def zero_counts():
@@ -829,7 +816,7 @@ def phase_train(dev, ray_on: bool):
         f"{ {k: v / TRAIN_STEPS for k, v in counts.items()} }), "
         f"plain-version calls {plain}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if counts != {k: v * TRAIN_STEPS for k, v in per_step.items()} \
+    if counts != {k: per_step.get(k, 0) * TRAIN_STEPS for k in counts} \
             or plain != 0:
         raise AssertionError(f"training did not run through the kernels "
                              f"alone: expected {per_step} per step")
@@ -968,6 +955,239 @@ def phase_grad(dev, meta, trained):
             raise AssertionError(f"non-finite G loss or gradient ({label})")
         del kern, bf, f32
 
+# the ceiling-probe scripts, the slice's entry points (scripts/)
+PROBE_SCRIPTS = ("profile_torch_mxu_chain", "profile_torch_epilogue_overlap",
+                 "profile_torch_dma_gather")
+PROBE_KERNELS = ("run_chain", "run_wide", "run_epi", "ring_dma_gather")
+# probe kernels vs plain versions. Chains, max|diff| / max|plain|: bf16
+# operands on both sides, f32 sums in another order; a linear chain carries
+# the resulting bf16 flips (~5e-3 relative at 11 layers)
+CHAIN_TOL = 2e-2
+# the FiLM chain at the field's weight scale over 11 layers, values in
+# [-1, 1]: bf16 flips grow with depth and with the number of rows, so RMS
+# holds the kernel and max only bounds the tail; a zeroed or shifted row
+# fails both
+EPI_RMS_TOL, EPI_MAX_TOL = 5e-3, 2.5e-1
+# the FiLM chain on the script's draw (W ~ N(0, 1/256), f ~ N(30, 15^2)) is
+# chaotic from layer 3 on (tests/test_torch_mxu_chain.py shows it): held
+# over 1 layer, one bf16 rounding apart
+EPI1_TOL = 2e-2
+
+
+def _probe_script(name: str):
+    """scripts/<name>.py as a module (scripts/ is not a package)."""
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_probe_scripts() -> tuple[dict, dict]:
+    """The slice's main path: the three ceiling-probe scripts at their full
+    shapes, 3 timed calls per variant. Returns (launches of each probe
+    kernel, the scripts' results by script and variant)."""
+    mods = [_probe_script(name) for name in PROBE_SCRIPTS]
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- the main path: counts from zero ---
+        zero_counts()
+        for name, mod in zip(PROBE_SCRIPTS, mods):
+            out = os.path.join(tmp, f"{name}.json")
+            if mod.main(["--iters", "3", "--out", out]) != 0:
+                raise AssertionError(f"{name} failed")
+            with open(out) as f:
+                results[name] = json.load(f)["variants"]
+        launches, plain = read_counts()
+    probe = {k: launches[k] for k in PROBE_KERNELS}
+    log(f"[probes] scripts' launches {probe}, plain-version calls {plain}")
+    if not all(probe.values()) or plain != 0:
+        raise AssertionError("the probe scripts did not run through their "
+                             "kernels alone")
+    return probe, results
+
+
+def _chain_variant(name: str) -> dict:
+    """tile / interleave of a probe script's variant name (chain_t64, ilv2_t128,
+    epi_ilv4_t128, wide_t32)."""
+    tile = int(name.rsplit("_t", 1)[1])
+    k = int(name.split("ilv")[1].split("_")[0]) if "ilv" in name else 1
+    return {"tile": tile, "interleave": k}
+
+
+def phase_probes(dev, results: dict) -> dict:
+    """Each probe kernel against its plain version at the probe scripts' full
+    shapes, at every tile / interleave the probe scripts ran; timed (the
+    fastest variant) beside the plain version and the library call.
+    Returns the kernels' records by name."""
+    from fenerf_tpu_torch.ops import dma_gather as dg
+    from fenerf_tpu_torch.ops import mxu_chain as mc
+    from fenerf_tpu_torch.ops import probes as pr
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    mxu = results["profile_torch_mxu_chain"]
+    epi = results["profile_torch_epilogue_overlap"]
+    out = {}
+
+    def matmuls(a, ws):
+        for w in ws:
+            a = a @ w
+        return a
+
+    # --- the chains: every tile / interleave against one plain result ---
+    for kname, prefix, (n, h, layers), fn in (
+            ("run_chain", ("chain_", "ilv"), (pr.N_PTS, pr.H, pr.LAYERS),
+             mc.run_chain),
+            ("run_wide", ("wide_",), (pr.WIDE_N, pr.WIDE_H, pr.WIDE_LAYERS),
+             lambda x, w, tile, interleave: mc.run_wide(x, w, tile))):
+        x, w = pr.chain_inputs(gen, n, h, layers, dev)
+        ref = mc.chain_reference(x, w)
+        scale = ref.float().abs().max().item()
+        names = [k for k in mxu if k.startswith(prefix)]
+        outs = {k: fn(x, w, **_chain_variant(k)) for k in names}
+        torch.cuda.synchronize()
+        errs = {k: (o.float() - ref.float()).abs().max().item()
+                for k, o in outs.items()}
+        first = outs[names[0]]
+        same = all(torch.equal(o, first) for o in outs.values())
+        best = min(names, key=lambda k: mxu[k]["ms"])
+        del outs, first
+        v = _chain_variant(best)
+        ms = time_ms(lambda: fn(x, w, **v), 10)
+        plain_ms = time_ms(lambda: mc.chain_reference(x, w), 3, warmup=1)
+        mm_ms = time_ms(lambda: matmuls(x, w), 10)
+        bound, by = bound_ms(*pr.chain_cost(n, h, layers))
+        err = max(errs.values())
+        log(f"[probes] {kname} ({n}, {h}) x {layers} layers: max|kernel-"
+            f"plain|/max|plain| {err / scale:.3e} (tol {CHAIN_TOL}) over "
+            f"{names}; all variants bitwise equal {same}; {best} {ms:.4f} "
+            f"ms ({pr.chain_cost(n, h, layers)[0] / ms / 1e9:.1f} TFLOP/s), "
+            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); context: "
+            f"{layers} torch.matmul bf16 calls {mm_ms:.4f} ms")
+        if not err / scale <= CHAIN_TOL:
+            raise AssertionError(f"{kname} disagrees with plain: {errs}")
+        out[kname] = {"variant": best, "max_abs_err": err,
+                      "max_rel_err": err / scale, "variants_equal": same,
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "library_ms": None,
+                      "torch_matmul_chain_ms": mm_ms}
+        del x, w, ref
+
+    # --- the FiLM chain: field scale over 11 layers, script draw over 1 ---
+    n, h, layers = pr.N_PTS, pr.H, pr.LAYERS
+    x = pr.activations(gen, n, h, dev)
+    rows, errs_max = [], []
+    for scale, nl in (("field", layers), ("script", 1)):
+        w, b, f, p = pr.film_inputs(gen, nl, h, dev, scale)
+        for fold in (False, True):
+            kind = "fold" if fold else "epi"
+            ref = mc.epi_reference(x, w, b, f, p, fold=fold).float()
+            for k in (k for k in epi if k.startswith(kind + "_")):
+                got = mc.run_epi(x, w, b, f, p, fold=fold,
+                                 **_chain_variant(k)).float()
+                d = got - ref
+                mx = d.abs().max().item()
+                rms = d.square().mean().sqrt().item()
+                ok = (mx <= EPI1_TOL if nl == 1 else
+                      rms <= EPI_RMS_TOL and mx <= EPI_MAX_TOL)
+                rows.append({"scale": scale, "layers": nl, "variant": k,
+                             "max_abs_err": mx, "rms_err": rms, "ok": ok})
+                errs_max.append(mx)
+                del got, d
+            del ref
+        if scale == "script":
+            best = min((k for k in epi if k.startswith("epi_")),
+                       key=lambda k: epi[k]["ms"])
+            v = _chain_variant(best)
+            wl, bl, fl, pl = pr.film_inputs(gen, layers, h, dev, scale)
+            ms = time_ms(lambda: mc.run_epi(x, wl, bl, fl, pl, **v), 10)
+            plain_ms = time_ms(lambda: mc.epi_reference(x, wl, bl, fl, pl),
+                               3, warmup=1)
+            chain_ms = time_ms(lambda: mc.run_chain(x, wl, v["tile"]), 10)
+            del wl
+    for r in rows:
+        log(f"[probes] run_epi {r['variant']} at the {r['scale']} scale over "
+            f"{r['layers']} layer(s): max|kernel-plain| {r['max_abs_err']:.3e}"
+            f", RMS {r['rms_err']:.3e} (tol: " + (
+                f"max {EPI1_TOL}" if r["layers"] == 1 else
+                f"RMS {EPI_RMS_TOL}, max {EPI_MAX_TOL}") + ")")
+    bound, by = bound_ms(*pr.chain_cost(n, h, layers))
+    log(f"[probes] run_epi {best} (script draw, 11 layers) {ms:.4f} ms, "
+        f"run_chain at its tile {chain_ms:.4f} ms (the epilogue adds "
+        f"{ms - chain_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by})")
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("run_epi disagrees with plain: "
+                             f"{[r for r in rows if not r['ok']]}")
+    out["run_epi"] = {"variant": best, "max_abs_err": max(errs_max),
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "library_ms": None,
+                      "chain_ms": chain_ms, "shapes": rows}
+    del x
+
+    # --- the gather: bit-exact, 2 KB and 512 B rows, and with the chain ---
+    cases = []
+    for row_shape, rings_ in ((pr.ROW_TPU, (16, 64)),
+                              (pr.ROW_FLAGSHIP, (16, 256))):
+        table, idx = pr.table_inputs(gen, row_shape, pr.N_IDX, dev)
+        ref = dg.gather_reference(table, idx)
+        row_bytes = 2 * table[0].numel()
+        nbytes = pr.gather_bytes(pr.N_IDX, row_bytes)
+        lib_ms = time_ms(lambda: table.index_select(0, idx), 10)
+        for ring in rings_:
+            got = dg.ring_dma_gather(table, idx, ring)
+            torch.cuda.synchronize()
+            exact = torch.equal(got, ref)
+            del got
+            ms = time_ms(lambda: dg.ring_dma_gather(table, idx, ring), 10)
+            bound, by = bound_ms(0, nbytes)
+            cases.append({"row_bytes": row_bytes, "ring": ring,
+                          "bitwise": exact, "ms": ms, "library_ms": lib_ms,
+                          "bound_ms": bound, "bound_by": by})
+        if row_shape == pr.ROW_TPU:
+            plain_ms = time_ms(lambda: dg.gather_reference(table, idx), 10)
+            x, w = pr.chain_inputs(gen, pr.N_IDX, pr.H, pr.LAYERS, dev)
+            rows_o, act = dg.ring_dma_gather(table, idx, 32, ws=w, x=x,
+                                             overlap=True)
+            act_ref = mc.chain_reference(x, w)
+            torch.cuda.synchronize()
+            act_err = ((act.float() - act_ref.float()).abs().max()
+                       / act_ref.float().abs().max()).item()
+            exact = torch.equal(rows_o, ref)
+            del rows_o, act, act_ref
+            ms = time_ms(lambda: dg.ring_dma_gather(
+                table, idx, 32, ws=w, x=x, overlap=True), 10)
+            flops, chain_bytes = pr.chain_cost(pr.N_IDX, pr.H, pr.LAYERS)
+            bound, by = bound_ms(flops, nbytes + chain_bytes)
+            cases.append({"row_bytes": row_bytes, "ring": 32,
+                          "overlap": True, "bitwise": exact,
+                          "chain_max_rel_err": act_err, "ms": ms,
+                          "bound_ms": bound, "bound_by": by})
+            del x, w
+        del table, idx, ref
+    for c in cases:
+        log(f"[probes] ring_dma_gather {c['row_bytes']} B rows, ring "
+            f"{c['ring']}{', with the chain' if c.get('overlap') else ''}: "
+            f"bitwise equal to index_select {c['bitwise']}"
+            + (f", chain max|kernel-plain|/max|plain| "
+               f"{c['chain_max_rel_err']:.3e} (tol {CHAIN_TOL})"
+               if c.get("overlap") else "")
+            + f"; {c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']})"
+            + (f", index_select {c['library_ms']:.4f} ms"
+               if "library_ms" in c else ""))
+    if not all(c["bitwise"] and c.get("chain_max_rel_err", 0) <= CHAIN_TOL
+               for c in cases):
+        raise AssertionError(f"ring_dma_gather disagrees: {cases}")
+    best = min((c for c in cases if c["row_bytes"] == 2048
+                and not c.get("overlap")), key=lambda c: c["ms"])
+    out["ring_dma_gather"] = {
+        "variant": f"ring_dma_r{best['ring']}", "max_abs_err": 0.0,
+        "ms": best["ms"], "plain_ms": plain_ms, "bound_ms": best["bound_ms"],
+        "bound_by": best["bound_by"], "library_ms": best["library_ms"],
+        "shapes": cases}
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -997,6 +1217,8 @@ def main() -> int:
     log(f"[train] ms/step, ray kernels off / on: "
         f"{train_off['ms_per_step']:.1f} / {train_on['ms_per_step']:.1f}")
     phase_grad(dev, CURRICULA[TEXTURE].at_step(0), (trained, TRAIN_STEPS))
+    probe_launches, probe_results = phase_probe_scripts()
+    probes = phase_probes(dev, probe_results)
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f} s")
 
     def launches(name):
@@ -1028,7 +1250,17 @@ def main() -> int:
          **launches("ray_finalize"), **finalize},
         {"name": "fold_zexp", "route": "cuda", "source": src + "zexp_fold.cu",
          "replaces": "fenerf_tpu/ops/zexp_fold.py:46",
-         **launches("fold_zexp"), **fold}]}))
+         **launches("fold_zexp"), **fold}] + [
+        {"name": name, "route": "cuda", "source": src + source,
+         "replaces": replaces, "launches": probe_launches[name],
+         **probes[name]}
+        for name, source, replaces in (
+            ("run_chain", "mxu_chain.cu", "scripts/profile_mxu_chain.py:50"),
+            ("run_wide", "mxu_chain.cu", "scripts/profile_mxu_chain.py:86"),
+            ("run_epi", "mxu_chain.cu",
+             "scripts/profile_epilogue_overlap.py:53"),
+            ("ring_dma_gather", "dma_gather.cu",
+             "scripts/profile_dma_gather.py:55"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

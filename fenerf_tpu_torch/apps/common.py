@@ -48,9 +48,14 @@ def _template(cfg: fields.FieldConfig) -> Any:
     return fields.init_field(gen, cfg, device="meta")
 
 
-def load_generator(path: str, device="cpu"):
+def load_generator(path: str, device="cuda"):
     """-> (params, ema_params, ema2_params, cfg, config dict) as tensors on
-    `device`. Film family only."""
+    `device` (the card unless asked; "cpu" loads for the torch route).
+    Film family only."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' to load "
+                           "the generator on the CPU")
     with np.load(path, allow_pickle=False) as data:
         config = json.loads(str(data["__config__"]))
         config.setdefault("family", "film")
@@ -67,7 +72,7 @@ def load_generator(path: str, device="cpu"):
                 raise ValueError(f"checkpoint has {n} {name} leaves, "
                                  f"{cfg.name} has {n_template}")
             leaves = [torch.from_numpy(np.asarray(data[f"{name}_{i}"]))
-                      .to(device=device, dtype=torch.float32)
+                      .to(device=dev, dtype=torch.float32)
                       for i in range(n)]
             return jax_bridge.tree_unflatten(template, leaves)
 

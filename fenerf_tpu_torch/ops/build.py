@@ -1,6 +1,7 @@
 """Builds the port's CUDA sources (ops/csrc/<name>.cu) with nvcc for sm_90a
-into build/ (gitignored), once per source content, and loads them with
-ctypes. Each source has a plain C interface, so nvcc takes seconds.
+into build/ (gitignored), once per source content (the .cu and the shared
+csrc/*.cuh headers), and loads them with ctypes. Each source has a plain C
+interface, so nvcc takes seconds.
 
 `build(names)` starts one nvcc per missing library, all at once, and waits
 for them; `library(name)` builds one if needed and returns the loaded
@@ -18,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 # every kernel source of the port (ops/csrc/<name>.cu)
-KERNELS = ("film_mlp", "film_mlp_bwd", "ray_finalize", "zexp_fold")
+KERNELS = ("film_mlp", "film_mlp_bwd", "ray_finalize", "zexp_fold",
+           "mxu_chain", "dma_gather")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 BUILD_LOG: dict[str, str] = {}   # name -> nvcc output of this process's build
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -40,7 +42,10 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> Path:
-    tag = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:16]
     return BUILD_DIR / f"{name}_{tag}.so"
 
 

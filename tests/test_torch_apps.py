@@ -98,7 +98,8 @@ class TestCheckpointBridge:
         path = str(tmp_path / "g.npz")
         jcommon.save_generator(path, jp, jp, jp, FLAGSHIP, step=7,
                                field_kwargs=TINY_KW)
-        params, ema, ema2, tcfg, config = tcommon.load_generator(path)
+        params, ema, ema2, tcfg, config = tcommon.load_generator(
+            path, device="cpu")
         assert config["step"] == 7 and tcfg == tfields.get_config(
             FLAGSHIP, **TINY_KW)
         for a, t in zip(jax.tree_util.tree_leaves(jp),
@@ -122,6 +123,15 @@ class TestCheckpointBridge:
             np.testing.assert_array_equal(np.asarray(a), t.numpy())
         ref, out = _render_pair(jp, tp, jcfg, tcfg)
         np.testing.assert_allclose(out, ref, atol=1e-4)
+
+    def test_loader_runs_on_the_card_unless_asked(self, monkeypatch,
+                                                  tiny_ckpt):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tcommon.load_generator(tiny_ckpt)
+        params = tcommon.load_generator(tiny_ckpt, device="cpu")[0]
+        assert all(t.device.type == "cpu"
+                   for t in jax_bridge.tree_leaves(params))
 
 
 def _png_pixels(body: bytes) -> np.ndarray:

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels (fenerf_tpu_torch/ops/csrc/film_mlp.cu,
-film_mlp_bwd.cu, ray_finalize.cu, zexp_fold.cu) against their plain torch
-versions on the card, and their wrappers' input checks. Skips without an
-NVIDIA GPU.
+film_mlp_bwd.cu, ray_finalize.cu, zexp_fold.cu, mxu_chain.cu,
+dma_gather.cu) against their plain torch versions on the card, and their
+wrappers' input checks. Skips without an NVIDIA GPU.
 
 Imports no JAX, so it runs on a machine without it:
   python -m pytest --noconftest -q tests/test_torch_kernel_cuda.py
@@ -261,3 +261,148 @@ def test_ray_and_fold_wrappers_reject_bad_input(device):
         zf.fold_zexp(dt.half(), (2, 3, 3, 3))
     with pytest.raises(ValueError, match="dtable"):
         zf.fold_zexp(dt, (2, 3, 3, 4))
+
+
+# the ceiling probes (ops/csrc/mxu_chain.cu, dma_gather.cu). Chains: bf16
+# operands on both sides, f32 sums in another order (max|diff|/max|plain|)
+CHAIN_TOL = 2e-2
+
+
+@pytest.mark.parametrize("n,h,layers,tile,k", [
+    (1000, 256, 11, 64, 1), (1001, 256, 11, 128, 4), (77, 64, 3, 32, 1),
+    (130, 512, 5, 64, 2), (300, 512, 5, 32, 1), (65, 192, 2, 128, 2)])
+def test_chain_kernel_matches_plain(device, n, h, layers, tile, k):
+    from fenerf_tpu_torch.ops import mxu_chain as mc
+    from fenerf_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    x, w = probes.chain_inputs(gen, n, h, layers, device)
+    launches = mc.run_chain.launches
+    got = mc.run_chain(x, w, tile, interleave=k)
+    assert mc.run_chain.launches == launches + 1
+    ref = mc.chain_reference(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == (n, h) and got.dtype == torch.bfloat16
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= CHAIN_TOL, err.item()
+    # tiles and interleaves change the schedule, not a row's sums
+    assert torch.equal(got, mc.run_chain(x, list(w), 64))
+    if h == 512:
+        assert torch.equal(got, mc.run_wide(x, w, 32))
+
+
+@pytest.mark.parametrize("n,tile,k", [(1000, 64, 1), (1001, 128, 2),
+                                      (333, 128, 4), (40, 32, 1)])
+@pytest.mark.parametrize("fold", [False, True])
+def test_epi_kernel_matches_plain(device, n, tile, k, fold):
+    """At the field's weight scale over 11 layers (RMS-held: bf16 flips
+    grow with depth) and on the JAX script's draw over 1 layer."""
+    from fenerf_tpu_torch.ops import mxu_chain as mc
+    from fenerf_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    x = probes.activations(gen, n, 256, device)
+    for scale, layers in (("field", 11), ("script", 1)):
+        w, b, f, p = probes.film_inputs(gen, layers, 256, device, scale)
+        launches = mc.run_epi.launches
+        got = mc.run_epi(x, w, b, f, p, tile, interleave=k, fold=fold)
+        assert mc.run_epi.launches == launches + 1
+        ref = mc.epi_reference(x, w, b, f, p, fold=fold)
+        torch.cuda.synchronize()
+        d = got.float() - ref.float()
+        if layers == 1:
+            assert d.abs().max().item() <= 2e-2
+        else:
+            assert d.square().mean().sqrt().item() <= 5e-3
+            assert d.abs().max().item() <= 2.5e-1
+        assert torch.equal(got, mc.run_epi(x, w, b, f, p, 64, fold=fold))
+
+
+@pytest.mark.parametrize("row_shape", [(8, 128), (256,), (24,), (8,)])
+@pytest.mark.parametrize("n", [1024, 1024 + 37, 5])
+def test_gather_kernel_equals_plain(device, row_shape, n):
+    """Every ring the kernel takes, the largest beyond a ragged tile's
+    rows."""
+    from fenerf_tpu_torch.ops import dma_gather as dg
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    table = torch.randn((3000,) + row_shape, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+    idx = torch.randint(0, 3000, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    ref = dg.gather_reference(table, idx)
+    row_bytes = 2 * table[0].numel()
+    for ring in dg.rings(row_bytes):
+        launches = dg.ring_dma_gather.launches
+        got = dg.ring_dma_gather(table, idx, ring)
+        assert dg.ring_dma_gather.launches == launches + 1
+        assert torch.equal(got, ref), ring
+
+
+@pytest.mark.parametrize("n,ring", [(1024 + 100, 32), (2048, 1), (300, 8)])
+def test_gather_overlap_kernel_matches_plain(device, n, ring):
+    from fenerf_tpu_torch.ops import dma_gather as dg
+    from fenerf_tpu_torch.ops import mxu_chain as mc
+    from fenerf_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    table = torch.randn(3000, 8, 128, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+    idx = torch.randint(0, 3000, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    x, w = probes.chain_inputs(gen, n, 256, 11, device)
+    rows, act = dg.ring_dma_gather(table, idx, ring, ws=w, x=x, overlap=True)
+    ref = mc.chain_reference(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, dg.gather_reference(table, idx))
+    err = (act.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err.item() <= CHAIN_TOL, err.item()
+    # the same 64-row chain as run_chain's
+    assert torch.equal(act, mc.run_chain(x, w, 64))
+    rows0, act0 = dg.ring_dma_gather(table, idx, ring, ws=list(w),
+                                     overlap=True)
+    assert torch.equal(rows0, rows) and not act0.any()
+
+
+def test_probe_layouts_mirror_the_kernels(device):
+    """The wrappers' shared-memory and ring arithmetic equals the
+    libraries' own."""
+    from fenerf_tpu_torch.ops import dma_gather as dg
+    from fenerf_tpu_torch.ops import mxu_chain as mc
+
+    lib = mc._load_library()
+    for tile in mc.TILES:
+        for k in mc.INTERLEAVES:
+            if tile % k or (tile // k) % 32:
+                continue
+            for h in (64, 256, 512):
+                assert lib.mxu_chain_smem(tile, k, h) == mc.chain_smem(
+                    tile, k, h)
+    glib = dg._load_library()
+    for row_bytes in (48, 512, 2048, 8192):
+        for overlap in (0, 1):
+            got = tuple(r for r in range(1, 4097)
+                        if glib.dma_gather_rw(row_bytes, r, overlap)
+                        and glib.dma_gather_smem(row_bytes, r, 256, overlap)
+                        <= mc.MAX_SMEM)
+            assert got == dg.rings(row_bytes, bool(overlap)), row_bytes
+
+
+def test_probe_wrappers_reject_bad_input(device):
+    from fenerf_tpu_torch.ops import dma_gather as dg
+    from fenerf_tpu_torch.ops import mxu_chain as mc
+
+    x = torch.zeros(64, 256, device=device, dtype=torch.bfloat16)
+    w = torch.zeros(2, 256, 256, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ws"):
+        mc.run_chain(x, w.cpu())
+    with pytest.raises(ValueError, match="shared memory"):
+        mc.run_wide(torch.zeros(8, 512, device=device, dtype=torch.bfloat16),
+                    torch.zeros(1, 512, 512, device=device,
+                                dtype=torch.bfloat16), 128)
+    table = torch.zeros(10, 8, 128, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="idx"):
+        dg.ring_dma_gather(table, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="ring"):
+        dg.ring_dma_gather(table, torch.zeros(4, dtype=torch.int32,
+                                              device=device), ring=128)
