@@ -16,11 +16,19 @@ ops/csrc/dma_gather.cu). Every kernel is built here from the checkout.
 
 Phases (any failure exits non-zero):
   1. card and build: card name and power limit, torch / CUDA versions,
-     all six kernel libraries built in parallel (one nvcc each);
+     all six kernel libraries built in parallel (one nvcc each); per field
+     library the registers and spills of each kernel and its count of
+     HGMMA (wgmma) and HMMA (mma.sync / wmma) instructions in the SASS
+     (cuobjdump), failing if film_mlp's kernel or film_mlp_bwd's row or dW
+     kernel issues no HGMMA, or if ptxas notes (C7520 / C7512) say it
+     serialized a field library's wgmma;
   2. the forward kernel against its plain torch version at the serving
-     shape (B=1, N=4096x48), a ragged one (N not a multiple of the tile)
-     and the training renders' shape (B=6, N=32x32x24), max |diff| and the
-     time of each side;
+     shape (B=1, N=4096x48), two ragged ones (N not a multiple of the
+     tile; B=2, N=20000 has tiles that run from one batch element into the
+     next after a tile of the same CTA lay wholly in the first) and the
+     training renders' shape (B=6, N=32x32x24), max |diff| and the
+     time of each side, and as context_ms the same bf16 products through
+     torch.matmul (the product path's yardstick);
   3. the ray kernels against their plain versions at the serving block
      (B=1, R=4096, 48+48 samples, no noise), the training microbatch
      (B=6, R=1024, 24+24, sigma noise) and a ragged shape: fine z, comp,
@@ -42,7 +50,9 @@ Phases (any failure exits non-zero):
      route's; ray-chunked against whole-image rendering on both routes;
   7. the backward kernels against their plain version at the G-phase shape
      (B=6, N=32x32x24) and a ragged one, per output group
-     (ops/film_mlp_grad.py::bwd_agreement), and their times;
+     (ops/film_mlp_grad.py::bwd_agreement), bitwise equal from run to
+     run, their times and as context_ms the recompute, dX and dW bf16
+     products through torch.matmul;
   8. training, with the ray kernels off and then on: stage 0 of the
      flagship curriculum (bs 24, split 4, 32^2, 24+24 steps), TRAIN_STEPS
      steps on seeded synthetic reals each; finite losses, ms/step (median
@@ -124,7 +134,65 @@ def phase_card():
     log(f"[build] {', '.join(build.KERNELS)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, out in build.BUILD_LOG.items():
-        log(f"[build] {name}:\n{out.strip()}")
+        # ptxas notes of each wgmma.fence it inserts would drown the rest
+        keep = [ln for ln in out.strip().splitlines() if "(C7519)" not in ln]
+        log(f"[build] {name}:\n" + "\n".join(keep))
+    phase_sass(build)
+
+
+# the kernels that must issue wgmma (SASS HGMMA), by library
+HOPPER_KERNELS = {"film_mlp": ("film_mlp_kernel",),
+                  "film_mlp_bwd": ("bwd_rows_kernel", "dw_kernel")}
+
+
+def phase_sass(build):
+    """Registers, spills and the HGMMA / HMMA instruction counts of every
+    kernel of the two field libraries (cuobjdump); fails if a kernel of
+    HOPPER_KERNELS issues no HGMMA."""
+    import re
+    import subprocess
+
+    cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
+    for lib, want in HOPPER_KERNELS.items():
+        so = str(build._so_path(lib))
+        usage = subprocess.run([cuobjdump, "--dump-resource-usage", so],
+                               capture_output=True, text=True,
+                               check=True).stdout
+        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                              text=True, check=True).stdout
+        regs = {}
+        name = None
+        for line in usage.splitlines():
+            m = re.search(r"Function (\S+):", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"REG:(\d+).*?STACK:(\d+).*?LOCAL:(\d+)", line)
+            if m and name:
+                regs[name] = tuple(int(x) for x in m.groups())
+        counts = {}
+        name = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                counts[name] = [0, 0]
+            elif name:
+                counts[name][0] += " HGMMA." in line
+                counts[name][1] += " HMMA." in line
+        for fn, (hg, hm) in counts.items():
+            r, st, lo = regs.get(fn, (-1, -1, -1))
+            log(f"[sass] {lib} {fn}: registers {r}, stack {st} B, local "
+                f"(spill) {lo} B, HGMMA {hg}, HMMA {hm}")
+        for k in want:
+            if not any(k in fn and hg > 0 for fn, (hg, _) in counts.items()):
+                raise AssertionError(f"{lib}: {k} issues no HGMMA (wgmma)")
+        # ptxas serialized every wgmma of a kernel: it still issues HGMMA,
+        # one at a time, so only its notes show it
+        notes = [ln for ln in build.BUILD_LOG.get(lib, "").splitlines()
+                 if "(C7520)" in ln or "(C7512)" in ln]
+        if notes:
+            raise AssertionError(f"{lib}: ptxas serialized its wgmma:\n"
+                                 + "\n".join(notes))
 
 
 def _flagship_params(dev, seed=0):
@@ -137,10 +205,11 @@ def _flagship_params(dev, seed=0):
     return cfg, params, gen
 
 
-# the forward kernel's shapes: serving (B=1, N=128^2 x 48 steps), a ragged
-# batch (N not a multiple of the tile), and training's renders (a microbatch
+# the forward kernel's shapes: serving (B=1, N=128^2 x 48 steps), two ragged
+# batches (N not a multiple of the tile; at N=20000 a batch element spans
+# more tiles than there are SMs), and training's renders (a microbatch
 # of 6 of the stage's 24 fakes, N=32^2 x 24 steps: D fakes and G forward)
-FWD_SHAPES = ((1, 4096 * 48), (4, 12345), (6, 32 * 32 * 24))
+FWD_SHAPES = ((1, 4096 * 48), (4, 12345), (2, 20000), (6, 32 * 32 * 24))
 
 
 def phase_kernel(dev) -> dict:
@@ -179,16 +248,19 @@ def phase_kernel(dev) -> dict:
             rows * _flops_per_point(cfg),
             rows * (4 * 3 + 4 * 3 + 2 * cfg.grid_channels
                     + 4 * cfg.output_dim) + pack.weights.numel() * 2)
+        context = _products_ms(_fwd_products(pack, rows), dev)
         log(f"[kernel] B={b} N={n} rows={rows} max|kernel-plain|={err:.3e} "
             f"(tol {KERNEL_TOL}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
             f"kernel {rows / ms / 1e3:.1f} Mpts/s "
-            f"{rows * _flops_per_point(cfg) / ms / 1e9:.1f} TFLOP/s, "
-            f"bound {bound:.3f} ms ({by})")
+            f"{rows * _flops_per_point(cfg) / ms / 1e9:.1f} TFLOP/s "
+            f"({bound / ms:.1%} of the bound), bound {bound:.3f} ms ({by}); "
+            f"context: the same {pack.n_layers} bf16 products through "
+            f"torch.matmul {context:.3f} ms")
         if not err <= KERNEL_TOL:
             raise AssertionError(f"kernel disagrees with plain version: {err}")
         shapes.append({"B": b, "N": n, "max_abs_err": err, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": by})
+                       "bound_by": by, "context_ms": context})
     return {**shapes[0], "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "library_ms": None, "shapes": shapes}
 
@@ -201,6 +273,45 @@ def _flops_per_point(cfg) -> int:
          + (3 + g + h) * h + (cfg.color_layers - 1) * h * h       # color
          + h * cfg.rgb_dim)
     return 2 * k
+
+
+def _products_ms(shapes, dev, iters=5) -> float:
+    """The product path's yardstick: the bf16 products (m, k) @ (k, n) of
+    `shapes` through torch.matmul, one after another (cuBLAS; its time is
+    context, never used by the port)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ops = [(torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16))
+           for m, k, n in shapes]
+
+    def run():
+        for a, b in ops:
+            torch.matmul(a, b)
+
+    ms = time_ms(run, iters=iters)
+    del ops
+    return ms
+
+
+def _fwd_products(pack, rows):
+    """The forward kernel's products at `rows` points: one per layer of the
+    program, (rows, K) @ (K, n_pad)."""
+    return [(rows, d[23], d[10]) for d in pack.program.tolist()]
+
+
+def _bwd_products(pack, rows):
+    """The backward's products at `rows` points: every step of the program
+    (the recompute and dX = dy W^T) and every dW = x^T dy."""
+    from fenerf_tpu_torch.ops import film_mlp_grad as gops
+
+    hd = pack.head
+    prog = pack.program.tolist()
+    out = []
+    for i in range(hd["n_fwd"] + hd["n_bwd"]):
+        d = prog[gops.HEAD_INTS + i * gops.STEP_INTS:]
+        out.append((rows, d[25], d[10]))
+    out += [(lay["k"], rows, lay["n"]) for lay in pack.layers]
+    return out
 
 
 @contextlib.contextmanager
@@ -707,13 +818,21 @@ def phase_backward(dev) -> dict:
         g_out = torch.randn(b, n, cfg.output_dim, generator=gen, device=dev)
         args = (pack, warped, dirs, gf, fg, fa, g_out)
         out = gops.film_mlp_bwd(*args)
+        again = gops.film_mlp_bwd(*args)
+        # timed before the plain version fills the allocator's cache
+        ms = time_ms(lambda: gops.film_mlp_bwd(*args), iters=5)
         ref = gops.film_mlp_bwd_reference(*args)
         torch.cuda.synchronize()
         groups = gops.bwd_agreement(out, ref)
+        # no atomics: the same bits from run to run, in every output
+        bitwise = all(torch.equal(x, y) for xs, ys in zip(out[0], again[0])
+                      for x, y in zip(xs, ys)) and all(
+            (x is None and y is None) or torch.equal(x, y)
+            for x, y in zip(out[1:], again[1:]))
+        del again
         worst_rel = max(groups, key=lambda r: r[1])
         worst_cos = min(groups, key=lambda r: r[2])
         rows = b * n
-        ms = time_ms(lambda: gops.film_mlp_bwd(*args), iters=5)
         plain_ms = time_ms(lambda: gops.film_mlp_bwd_reference(*args),
                            iters=2, warmup=1)
         flops = 6 * _macs_per_point_unfolded(cfg) * rows
@@ -723,24 +842,32 @@ def phase_backward(dev) -> dict:
                   + pack.weights.numel() * 2
                   + 4 * sum(w.numel() + bb.numel() for w, bb in out[0]))
         bound, by = bound_ms(flops, nbytes)
+        context = _products_ms(_bwd_products(pack, rows), dev, iters=3)
         log(f"[backward] B={b} N={n} rows={rows} worst max|diff|/max|plain| "
             f"{worst_rel[1]:.3e} ({worst_rel[0]}), worst cosine "
             f"{worst_cos[2]:.7f} ({worst_cos[0]}) (limits {gops.BWD_TOL}, "
             f"per-point groups {gops.BWD_TOL_PER_POINT}, cos > "
-            f"{gops.BWD_COS}); kernel {ms:.3f} ms plain {plain_ms:.3f} ms, "
-            f"{rows / ms / 1e3:.2f} Mpts/s, {flops / ms / 1e9:.1f} TFLOP/s, "
-            f"bound {bound:.3f} ms ({by})")
+            f"{gops.BWD_COS}); bitwise equal run to run {bitwise}; kernel "
+            f"{ms:.3f} ms plain {plain_ms:.3f} ms, "
+            f"{rows / ms / 1e3:.2f} Mpts/s, {flops / ms / 1e9:.1f} TFLOP/s "
+            f"({bound / ms:.1%} of the bound), bound {bound:.3f} ms ({by}); "
+            f"context: the same {len(_bwd_products(pack, rows))} bf16 "
+            f"products (recompute, dX, dW) through torch.matmul "
+            f"{context:.3f} ms")
         log("[backward] groups " + " ".join(
             f"{nm}:{rel:.2e}/{cos:.6f}" for nm, rel, cos, _ in groups))
         bad = [r for r in groups if not r[3]]
         if bad:
             raise AssertionError(f"backward kernel disagrees: {bad}")
+        if not bitwise:
+            raise AssertionError("backward kernel differs from run to run")
         shapes.append({
             "B": b, "N": n, "max_abs_err": max(
                 (x - y).abs().max().item() for xs, ys in zip(out[0], ref[0])
                 for x, y in zip(xs, ys)),
             "max_rel_err": worst_rel[1], "min_cos": worst_cos[2], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by})
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "context_ms": context, "bitwise": bitwise})
         del out, ref
     return {**shapes[0], **{k: max(s[k] for s in shapes) for k in
                             ("max_abs_err", "max_rel_err")},

@@ -17,6 +17,15 @@ The same program drives both the kernel and its plain torch version
 `film_mlp_reference`, so the CPU parity tests against the JAX kernel check
 the packing that the card runs.
 
+The kernel reads the weights in a DEVICE LAYOUT (`FilmPack.wdev`): each
+layer's padded (K, n) block, n padded up to n_dev in 16/32/64/128/256, cut
+into column passes of at most 128 and each pass into 64-row K chunks, each
+chunk stored as wgmma's 128-byte-swizzled K-major B operand
+(`sw128_index`). The program and the swizzle
+index depend only on the configuration and are built once per
+(configuration, device) (`_plan`); a call to `pack` scatters the current
+weights.
+
 Dispatch: `film_mlp` runs `film_mlp_reference` for CPU tensors and the
 CUDA kernel for CUDA tensors (or raises); it never falls back.
 """
@@ -24,11 +33,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 
-from fenerf_tpu_torch.nn.fields import FieldConfig
+from fenerf_tpu_torch.nn.fields import FieldConfig, init_field
 from fenerf_tpu_torch.ops import build
 from fenerf_tpu_torch.ops.fast_math import fast_sin
 
@@ -38,13 +48,43 @@ BUF_IN, BUF_A, BUF_B = 0, 1, 2
 IN_PTS, IN_DIRS, IN_GRID = 0, 16, 32
 # epilogues
 FILM, LIN_BUF, LIN_OUT = 0, 1, 2
-LAYER_INTS = 24
+LAYER_INTS = 32
+# the widths the kernel's products take (ops/csrc/hopper.cuh)
+N_DEV = (16, 32, 64, 128, 256)
+KCHUNK = 64   # weight rows per staged chunk
+PASS = 128    # columns per pass of a wider layer
 
 PACK_KEY = "film_pack"
 
 
 def _pad16(n: int) -> int:
     return (n + 15) // 16 * 16
+
+
+def n_dev(n: int) -> int:
+    """The product width a layer of n (padded) columns runs at."""
+    return next(w for w in N_DEV if w >= n)
+
+
+def sw128_index(k_total: int, n_pad: int, nd: int, src_off: int,
+                zero: int) -> torch.Tensor:
+    """Gather index of one (k_total, n_pad) row-major block, flattened at
+    src_off, into its device layout: column passes of np = min(nd, 128)
+    columns, each cut into ceil(k_total / 64) K chunks; a chunk is np rows
+    (one per output column) of 64 K values, the 16-byte group q of row n
+    holding K values 8 * (q ^ (n % 8)) .. + 8 of the chunk (the 128-byte
+    swizzle). Positions past the block take index `zero`."""
+    np_ = min(nd, PASS)
+    chunks = -(-k_total // KCHUNK)
+    p = torch.arange(nd // np_).view(-1, 1, 1, 1)
+    c = torch.arange(chunks).view(1, -1, 1, 1)
+    r = torch.arange(np_).view(1, 1, -1, 1)
+    q = torch.arange(KCHUNK).view(1, 1, 1, -1)
+    n = p * np_ + r
+    k = c * KCHUNK + (((q >> 3) ^ (r & 7)) << 3) + (q & 7)
+    ok = (k < k_total) & (n < n_pad)
+    return torch.where(ok, src_off + k * n_pad + n,
+                       torch.full_like(k, zero)).reshape(-1)
 
 
 def supported(cfg: Any) -> bool:
@@ -105,18 +145,27 @@ class _Layer:
 @dataclasses.dataclass
 class FilmPack:
     """Kernel operands of one parameter set: the layer program (int32,
-    LAYER_INTS per layer), all weights zero-padded and flattened in bf16,
-    all biases padded and flattened in f32."""
+    LAYER_INTS per layer), all weights zero-padded and flattened in bf16
+    and in the kernel's device layout, all biases padded and flattened in
+    f32."""
     cfg: FieldConfig
     program: torch.Tensor
     weights: torch.Tensor
     biases: torch.Tensor
+    dev_index: torch.Tensor   # gathers `wdev` from `weights` (+ one zero)
     n_layers: int
     in_width: int
-    n_bufs: int
-    max_n_pad: int
+    stash: int             # the kernel keeps one buffer in shared memory
+    max_n_dev: int
     l_geo: int
     l_app: int
+
+    @functools.cached_property
+    def wdev(self) -> torch.Tensor:
+        """The kernel's device layout of `weights`, gathered on first use
+        (the plain version never reads it)."""
+        w = self.weights
+        return torch.cat([w, w.new_zeros(1)])[self.dev_index]
 
 
 def _layers(params: Any, cfg: FieldConfig) -> list[_Layer]:
@@ -193,6 +242,90 @@ def _layers(params: Any, cfg: FieldConfig) -> list[_Layer]:
     return out
 
 
+@dataclasses.dataclass
+class _Plan:
+    """What a pack of one configuration on one device shares with every
+    other: the program, the device layout's gather index and the weight
+    shapes they were built for."""
+    program: torch.Tensor
+    dev_index: torch.Tensor
+    shapes: list
+    n_layers: int
+    in_width: int
+    stash: int
+    max_n_dev: int
+    l_geo: int
+    l_app: int
+
+
+def _stash_flags(layers: list[_Layer], h: int) -> list[int]:
+    """Which layers must first keep the buffer the kernel holds in
+    registers: a layer writing another buffer while the held one is read
+    again later. Checks that every buffer segment is then in registers or
+    in the stash."""
+    reg = stash = None
+    flags = []
+    for i, lyr in enumerate(layers):
+        for src, col, k in lyr.segs:
+            if src != BUF_IN:
+                assert src in (reg, stash) and col == 0 and k == h, \
+                    (i, lyr.segs, reg, stash)
+        flag = 0
+        if lyr.kind != LIN_OUT and lyr.dst != reg and reg is not None:
+            for later in layers[i + 1:]:
+                if any(src == reg for src, _, _ in later.segs):
+                    flag = 1
+                    break
+                if later.kind != LIN_OUT and later.dst == reg:
+                    break
+        if flag:
+            stash = reg
+        if lyr.kind != LIN_OUT:
+            reg = lyr.dst
+        flags.append(flag)
+    return flags
+
+
+@functools.cache
+def _plan(cfg: FieldConfig, device: str) -> _Plan:
+    """The pack's program of one configuration on one device, built from
+    the layer shapes alone (parameters on the meta device)."""
+    layers = _layers(init_field(None, cfg, device="meta"), cfg)
+    prog, idx = [], []
+    w_off = b_off = d_off = 0
+    stash = _stash_flags(layers, cfg.hidden_dim)
+    zero = sum(sum(_pad16(k) for _, _, k in lyr.segs) * _pad16(lyr.w.shape[1])
+               for lyr in layers)
+    for lyr, st in zip(layers, stash):
+        n = lyr.w.shape[1]
+        n_pad = _pad16(n)
+        nd = n_dev(n_pad)
+        k_pads = [_pad16(k) for _, _, k in lyr.segs]
+        k_total = sum(k_pads)
+        chunks = -(-k_total // KCHUNK) * (nd // min(nd, PASS))
+        d = [0] * LAYER_INTS
+        d[0] = len(lyr.segs)
+        for s, ((src, col, _), kp) in enumerate(zip(lyr.segs, k_pads)):
+            d[1 + 3 * s:4 + 3 * s] = [src, col, kp]
+        d[10:28] = [n_pad, w_off, b_off, lyr.kind, lyr.dst, lyr.film,
+                    lyr.chunk, n, lyr.split, lyr.out0, int(lyr.sig0),
+                    lyr.out1, int(lyr.sig1), k_total, nd, d_off, chunks, st]
+        prog.append(d)
+        idx.append(sw128_index(k_total, n_pad, nd, w_off, zero))
+        w_off += k_total * n_pad
+        b_off += n_pad
+        d_off += -(-k_total // KCHUNK) * nd * KCHUNK
+    g = cfg.grid_channels or 0
+    lf = 1 if (cfg.n_labels and cfg.label_film) else 0
+    return _Plan(
+        program=torch.tensor(prog, dtype=torch.int32, device=device),
+        dev_index=torch.cat(idx).to(device),
+        shapes=[tuple(lyr.w.shape) for lyr in layers], n_layers=len(layers),
+        in_width=IN_GRID + _pad16(g) if g else IN_GRID,
+        stash=int(any(stash)), max_n_dev=max(d[24] for d in prog),
+        l_geo=cfg.trunk_layers, l_app=cfg.color_layers + lf)
+
+
 def pack(params: Any, cfg: FieldConfig) -> FilmPack:
     """Fold, pad and flatten the field's MLP parameters into kernel
     operands on the parameters' device."""
@@ -200,8 +333,10 @@ def pack(params: Any, cfg: FieldConfig) -> FilmPack:
         raise ValueError(f"variant {cfg.name} is not covered by film_mlp")
     device = params["trunk"][0]["w"].device
     layers = _layers(params, cfg)
-    prog, ws, bs = [], [], []
-    w_off = b_off = 0
+    plan = _plan(cfg, str(device))
+    if [tuple(lyr.w.shape) for lyr in layers] != plan.shapes:
+        raise ValueError(f"parameters do not have the shapes of {cfg.name}")
+    ws, bs = [], []
     for lyr in layers:
         n = lyr.w.shape[1]
         n_pad = _pad16(n)
@@ -218,27 +353,12 @@ def pack(params: Any, cfg: FieldConfig) -> FilmPack:
         bp[:n] = lyr.b
         ws.append(wp.to(torch.bfloat16).reshape(-1))
         bs.append(bp)
-        d = [0] * LAYER_INTS
-        d[0] = len(lyr.segs)
-        for s, ((src, col, _), kp) in enumerate(zip(lyr.segs, k_pads)):
-            d[1 + 3 * s:4 + 3 * s] = [src, col, kp]
-        d[10:24] = [n_pad, w_off, b_off, lyr.kind, lyr.dst, lyr.film,
-                    lyr.chunk, n, lyr.split, lyr.out0, int(lyr.sig0),
-                    lyr.out1, int(lyr.sig1), sum(k_pads)]
-        prog.append(d)
-        w_off += wp.numel()
-        b_off += n_pad
-    g = cfg.grid_channels or 0
-    lf = 1 if (cfg.n_labels and cfg.label_film) else 0
-    uses_b = any(lyr.dst == BUF_B for lyr in layers)
     return FilmPack(
-        cfg=cfg,
-        program=torch.tensor(prog, dtype=torch.int32, device=device),
-        weights=torch.cat(ws), biases=torch.cat(bs), n_layers=len(layers),
-        in_width=IN_GRID + _pad16(g) if g else IN_GRID,
-        n_bufs=2 if uses_b else 1,
-        max_n_pad=max(d[10] for d in prog),
-        l_geo=cfg.trunk_layers, l_app=cfg.color_layers + lf)
+        cfg=cfg, program=plan.program, weights=torch.cat(ws),
+        biases=torch.cat(bs), dev_index=plan.dev_index,
+        n_layers=plan.n_layers,
+        in_width=plan.in_width, stash=plan.stash, max_n_dev=plan.max_n_dev,
+        l_geo=plan.l_geo, l_app=plan.l_app)
 
 
 def with_pack(params: Any, cfg: Any) -> Any:
@@ -335,7 +455,7 @@ def _load_library():
     if _LIB is None:
         lib = build.library("film_mlp")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.film_mlp_forward.argtypes = [vp] * 10 + [ci] * 11 + [vp, vp]
+        lib.film_mlp_forward.argtypes = [vp] * 10 + [ci] * 12 + [vp, vp]
         lib.film_mlp_forward.restype = ci
         lib.film_mlp_error_string.argtypes = [ci]
         lib.film_mlp_error_string.restype = ctypes.c_char_p
@@ -373,7 +493,7 @@ def film_mlp(p: FilmPack, points: torch.Tensor, ray_dirs: torch.Tensor,
     f32 = torch.float32
     _check(points, "points", (b, n, 3), f32, dev)
     _check(ray_dirs, "ray_dirs", (b, n, 3), f32, dev)
-    for name, t in (("program", p.program), ("weights", p.weights),
+    for name, t in (("program", p.program), ("weights", p.wdev),
                     ("biases", p.biases)):
         if t.device != dev:
             raise ValueError(f"film_mlp: pack {name} on {t.device}, "
@@ -394,7 +514,7 @@ def film_mlp(p: FilmPack, points: torch.Tensor, ray_dirs: torch.Tensor,
     _check(pa, "film_app phases", tuple(fa.shape), f32, dev)
     for name, t in (("film tables", fg), ("film tables", pg),
                     ("film tables", fa), ("film tables", pa),
-                    ("biases", p.biases), ("weights", p.weights)):
+                    ("biases", p.biases), ("weights", p.wdev)):
         if t.data_ptr() % 16:
             raise ValueError(f"film_mlp: {name} must be 16-byte aligned")
     out = torch.empty(rows, cfg.output_dim, dtype=f32, device=dev)
@@ -406,9 +526,9 @@ def film_mlp(p: FilmPack, points: torch.Tensor, ray_dirs: torch.Tensor,
         points.data_ptr(), ray_dirs.data_ptr(),
         gf.data_ptr() if gf is not None else None,
         fg.data_ptr(), pg.data_ptr(), fa.data_ptr(), pa.data_ptr(),
-        p.weights.data_ptr(), p.biases.data_ptr(), p.program.data_ptr(),
+        p.wdev.data_ptr(), p.biases.data_ptr(), p.program.data_ptr(),
         p.n_layers, rows, n, cfg.hidden_dim, g, p.l_geo, p.l_app,
-        p.in_width, p.n_bufs, p.max_n_pad, cfg.output_dim,
+        p.in_width, p.stash, p.max_n_dev, cfg.output_dim, p.biases.numel(),
         out.data_ptr(), stream)
     if rc != 0:
         msg = lib.film_mlp_error_string(rc).decode()

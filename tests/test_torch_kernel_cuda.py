@@ -32,6 +32,11 @@ def device():
 @pytest.mark.parametrize("name,kw,b,n", [
     (FLAGSHIP, dict(grid_resolution=16), 1, 4096 * 4),     # full width
     (FLAGSHIP, dict(grid_resolution=16), 3, 1001),         # ragged tiles
+    (FLAGSHIP, dict(grid_resolution=16), 3, 200),          # tiles straddle
+    (FLAGSHIP, dict(grid_resolution=16), 1, 37),           # < 64 rows
+    # more tiles than SMs, N % 128 != 0: a CTA's tile that runs into the
+    # next element follows one that lay wholly in the first
+    (FLAGSHIP, dict(grid_resolution=16), 2, 20000),
     ("SIRENBASELINESEMANTICDISENTANGLE", {}, 2, 333),
     ("SPATIALSIRENSEMANTIC", {}, 2, 257),                  # label_film
     ("EmbeddingPiGAN128SEMANTICDISENTANGLE", dict(grid_resolution=16), 2, 500),
@@ -87,6 +92,8 @@ def test_wrapper_rejects_bad_input(device):
 @pytest.mark.parametrize("name,kw,b,n", [
     (FLAGSHIP, dict(grid_resolution=16), 2, 4096),         # full width
     (FLAGSHIP, dict(grid_resolution=16), 3, 1001),         # ragged tiles
+    (FLAGSHIP, dict(grid_resolution=16), 3, 200),          # ragged, 2 tiles
+    (FLAGSHIP, dict(grid_resolution=16), 1, 37),           # < 64 rows
     ("SIRENBASELINESEMANTICDISENTANGLE", {}, 2, 333),
     ("SIRENBASELINESEMANTICDISENTANGLE_debug", {}, 2, 100),  # label sigmoid
     ("SPATIALSIRENBASELINESEMANTIC", {}, 1, 257),          # single latent
@@ -123,6 +130,36 @@ def test_backward_kernel_matches_plain_version(device, name, kw, b, n):
         assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
     bad = [row for row in gops.bwd_agreement(out, ref) if not row[3]]
     assert not bad, bad
+
+
+def test_backward_kernel_is_bitwise_deterministic(device):
+    """No atomics: two runs on the same inputs give the same bits in every
+    output (dW, db, dpoints, ddirs, dgf and the film gradients)."""
+    from fenerf_tpu_torch.ops import film_mlp_grad as gops
+
+    cfg = fields.get_config(FLAGSHIP, grid_resolution=16)
+    gen = torch.Generator(device=device).manual_seed(1)
+    params = fields.init_field(gen, cfg, device=device)
+    b, n = 2, 3000
+    pts = torch.randn(b, n, 3, generator=gen, device=device) * 0.1
+    dirs = torch.nn.functional.normalize(
+        torch.randn(b, n, 3, generator=gen, device=device), dim=-1)
+    zg = torch.randn(b, cfg.z_geo_dim, generator=gen, device=device)
+    za = torch.randn(b, cfg.z_app_dim, generator=gen, device=device)
+    fg, fa = fields.field_film(params, cfg, zg, za)
+    warped = pts * (2.0 / cfg.box_side)
+    table = build_zexp_table(params["grid"], torch.bfloat16)
+    gf = sample_zexp_table(table, params["grid"].shape, warped)
+    g_out = torch.randn(b, n, cfg.output_dim, generator=gen, device=device)
+    pack = gops.pack_bwd(params, cfg)
+    runs = [gops.film_mlp_bwd(pack, warped, dirs, gf, fg, fa, g_out)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (l0, *o0), (l1, *o1) = runs
+    for (w0, b0), (w1, b1) in zip(l0, l1):
+        assert torch.equal(w0, w1) and torch.equal(b0, b1)
+    for x, y in zip(o0, o1):
+        assert torch.equal(x, y)
 
 
 # fused per-ray kernels (ops/csrc/ray_finalize.cu) against their plain
