@@ -21,12 +21,16 @@ Phases (any failure exits non-zero):
      HGMMA (wgmma) and HMMA (mma.sync / wmma) instructions in the SASS
      (cuobjdump), failing if film_mlp's kernel or film_mlp_bwd's row or dW
      kernel issues no HGMMA, or if ptxas notes (C7520 / C7512) say it
-     serialized a field library's wgmma;
+     serialized a field library's wgmma; and the gather kernel's bulk
+     copies (UBLKCP), failing without them or with any per-thread cp.async
+     piece (LDGSTS);
   2. the forward kernel against its plain torch version at the serving
      shape (B=1, N=4096x48), two ragged ones (N not a multiple of the
      tile; B=2, N=20000 has tiles that run from one batch element into the
-     next after a tile of the same CTA lay wholly in the first) and the
-     training renders' shape (B=6, N=32x32x24), max |diff| and the
+     next after a tile of the same CTA lay wholly in the first), the
+     training renders' shape (B=6, N=32x32x24) and two whose every tile
+     touches three or more batch elements (B=3, N=37; B=5, N=20: the
+     FiLM rows from device memory), max |diff| and the
      time of each side, and as context_ms the same bf16 products through
      torch.matmul (the product path's yardstick);
   3. the ray kernels against their plain versions at the serving block
@@ -49,7 +53,8 @@ Phases (any failure exits non-zero):
      through its plain version; the ray kernels' render against the torch
      route's; ray-chunked against whole-image rendering on both routes;
   7. the backward kernels against their plain version at the G-phase shape
-     (B=6, N=32x32x24) and a ragged one, per output group
+     (B=6, N=32x32x24), a ragged one and B=2, N=20000 (more tiles than
+     SMs, N not a multiple of the tile), per output group
      (ops/film_mlp_grad.py::bwd_agreement), bitwise equal from run to
      run, their times and as context_ms the recompute, dX and dW bf16
      products through torch.matmul;
@@ -68,9 +73,11 @@ Phases (any failure exits non-zero):
      called), then each probe kernel against its plain version at those
      shapes (the chains at 11 layers and width 512; the FiLM epilogue at
      the field's weight scale over 11 layers and on the script's draw over
-     1; the gather bit-exact with 2 KB and 512 B rows at two ring sizes,
-     and beside the chain), timed beside the plain version and the
-     library call (index_select; for the chains, the same torch.matmul
+     1; the gather bit-exact with 2 KB and 512 B rows at the probe
+     script's rings, and beside the chain over 2 KB and over 16 B rows,
+     whose difference is what the gather adds beside the chain), timed
+     beside the plain version and the library call (index_select, with
+     each time's share of the bound; for the chains, the same torch.matmul
      calls in a row, printed as context).
 
 Prints the card line, a JSON line of per-kernel results and, last,
@@ -143,17 +150,22 @@ def phase_card():
 # the kernels that must issue wgmma (SASS HGMMA), by library
 HOPPER_KERNELS = {"film_mlp": ("film_mlp_kernel",),
                   "film_mlp_bwd": ("bwd_rows_kernel", "dw_kernel")}
+# the kernels that must move their rows by bulk copies (SASS UBLKCP, the
+# 1-D cp.async.bulk) and by no per-thread cp.async piece (LDGSTS), by library
+BULK_KERNELS = {"dma_gather": ("gather_kernel",)}
+SASS_OPS = ("HGMMA", "HMMA", "UBLKCP", "LDGSTS")
 
 
 def phase_sass(build):
-    """Registers, spills and the HGMMA / HMMA instruction counts of every
-    kernel of the two field libraries (cuobjdump); fails if a kernel of
-    HOPPER_KERNELS issues no HGMMA."""
+    """Registers, spills and the HGMMA / HMMA / UBLKCP / LDGSTS instruction
+    counts of every kernel of the field and gather libraries (cuobjdump);
+    fails if a kernel of HOPPER_KERNELS issues no HGMMA, or one of
+    BULK_KERNELS no UBLKCP or any LDGSTS."""
     import re
     import subprocess
 
     cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
-    for lib, want in HOPPER_KERNELS.items():
+    for lib in (*HOPPER_KERNELS, *BULK_KERNELS):
         so = str(build._so_path(lib))
         usage = subprocess.run([cuobjdump, "--dump-resource-usage", so],
                                capture_output=True, text=True,
@@ -169,23 +181,37 @@ def phase_sass(build):
             m = re.search(r"REG:(\d+).*?STACK:(\d+).*?LOCAL:(\d+)", line)
             if m and name:
                 regs[name] = tuple(int(x) for x in m.groups())
-        counts = {}
+        counts, opcodes = {}, {}
         name = None
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 name = m.group(1)
-                counts[name] = [0, 0]
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+                opcodes[name] = set()
             elif name:
-                counts[name][0] += " HGMMA." in line
-                counts[name][1] += " HMMA." in line
-        for fn, (hg, hm) in counts.items():
+                m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_]*)", line)
+                if m:
+                    opcodes[name].add(m.group(1))
+                    if m.group(1) in counts[name]:
+                        counts[name][m.group(1)] += 1
+        for fn, c in counts.items():
             r, st, lo = regs.get(fn, (-1, -1, -1))
             log(f"[sass] {lib} {fn}: registers {r}, stack {st} B, local "
-                f"(spill) {lo} B, HGMMA {hg}, HMMA {hm}")
-        for k in want:
-            if not any(k in fn and hg > 0 for fn, (hg, _) in counts.items()):
+                f"(spill) {lo} B, " + ", ".join(f"{k} {v}"
+                                                for k, v in c.items()))
+        for k in HOPPER_KERNELS.get(lib, ()):
+            if not any(k in fn and c["HGMMA"] > 0 for fn, c in counts.items()):
                 raise AssertionError(f"{lib}: {k} issues no HGMMA (wgmma)")
+        for k in BULK_KERNELS.get(lib, ()):
+            fns = [fn for fn in counts if k in fn]
+            if not fns or any(counts[fn]["UBLKCP"] == 0
+                              or counts[fn]["LDGSTS"] for fn in fns):
+                raise AssertionError(
+                    f"{lib}: {k} must move its rows by bulk copies (UBLKCP) "
+                    f"and no cp.async pieces (LDGSTS): {fns}, opcodes "
+                    f"{sorted(set().union(*(opcodes[f] for f in fns)))}")
         # ptxas serialized every wgmma of a kernel: it still issues HGMMA,
         # one at a time, so only its notes show it
         notes = [ln for ln in build.BUILD_LOG.get(lib, "").splitlines()
@@ -207,9 +233,12 @@ def _flagship_params(dev, seed=0):
 
 # the forward kernel's shapes: serving (B=1, N=128^2 x 48 steps), two ragged
 # batches (N not a multiple of the tile; at N=20000 a batch element spans
-# more tiles than there are SMs), and training's renders (a microbatch
-# of 6 of the stage's 24 fakes, N=32^2 x 24 steps: D fakes and G forward)
-FWD_SHAPES = ((1, 4096 * 48), (4, 12345), (2, 20000), (6, 32 * 32 * 24))
+# more tiles than there are SMs), training's renders (a microbatch of 6
+# of the stage's 24 fakes, N=32^2 x 24 steps: D fakes and G forward), and
+# two whose every tile touches three or more batch elements (the FiLM rows
+# read from device memory, not from the staged tables)
+FWD_SHAPES = ((1, 4096 * 48), (4, 12345), (2, 20000), (6, 32 * 32 * 24),
+              (3, 37), (5, 20))
 
 
 def phase_kernel(dev) -> dict:
@@ -806,7 +835,9 @@ def phase_backward(dev) -> dict:
     params = fields.with_grid_table(params, cfg, torch.bfloat16)
     pack = gops.pack_bwd(params, cfg)
     shapes = []
-    for b, n in ((6, 32 * 32 * 24), (2, 1000)):
+    # the G shape, a ragged one, and one with more tiles than SMs and
+    # N % 128 != 0
+    for b, n in ((6, 32 * 32 * 24), (2, 1000), (2, 20000)):
         pts = (torch.rand(b, n, 3, generator=gen, device=dev) - 0.5) * 0.24
         dirs = torch.nn.functional.normalize(
             torch.randn(b, n, 3, generator=gen, device=dev), dim=-1)
@@ -1253,13 +1284,14 @@ def phase_probes(dev, results: dict) -> dict:
     del x
 
     # --- the gather: bit-exact, 2 KB and 512 B rows, and with the chain ---
+    gscript = _probe_script("profile_torch_dma_gather")
     cases = []
-    for row_shape, rings_ in ((pr.ROW_TPU, (16, 64)),
-                              (pr.ROW_FLAGSHIP, (16, 256))):
+    for row_shape, rings_ in ((pr.ROW_TPU, gscript.RINGS),
+                              (pr.ROW_FLAGSHIP, gscript.RINGS_512B)):
         table, idx = pr.table_inputs(gen, row_shape, pr.N_IDX, dev)
         ref = dg.gather_reference(table, idx)
         row_bytes = 2 * table[0].numel()
-        nbytes = pr.gather_bytes(pr.N_IDX, row_bytes)
+        bound, by = bound_ms(0, pr.gather_bytes(pr.N_IDX, row_bytes))
         lib_ms = time_ms(lambda: table.index_select(0, idx), 10)
         for ring in rings_:
             got = dg.ring_dma_gather(table, idx, ring)
@@ -1267,30 +1299,34 @@ def phase_probes(dev, results: dict) -> dict:
             exact = torch.equal(got, ref)
             del got
             ms = time_ms(lambda: dg.ring_dma_gather(table, idx, ring), 10)
-            bound, by = bound_ms(0, nbytes)
             cases.append({"row_bytes": row_bytes, "ring": ring,
                           "bitwise": exact, "ms": ms, "library_ms": lib_ms,
                           "bound_ms": bound, "bound_by": by})
         if row_shape == pr.ROW_TPU:
             plain_ms = time_ms(lambda: dg.gather_reference(table, idx), 10)
             x, w = pr.chain_inputs(gen, pr.N_IDX, pr.H, pr.LAYERS, dev)
-            rows_o, act = dg.ring_dma_gather(table, idx, 32, ws=w, x=x,
-                                             overlap=True)
             act_ref = mc.chain_reference(x, w)
-            torch.cuda.synchronize()
-            act_err = ((act.float() - act_ref.float()).abs().max()
-                       / act_ref.float().abs().max()).item()
-            exact = torch.equal(rows_o, ref)
-            del rows_o, act, act_ref
-            ms = time_ms(lambda: dg.ring_dma_gather(
-                table, idx, 32, ws=w, x=x, overlap=True), 10)
             flops, chain_bytes = pr.chain_cost(pr.N_IDX, pr.H, pr.LAYERS)
-            bound, by = bound_ms(flops, nbytes + chain_bytes)
-            cases.append({"row_bytes": row_bytes, "ring": 32,
-                          "overlap": True, "bitwise": exact,
-                          "chain_max_rel_err": act_err, "ms": ms,
-                          "bound_ms": bound, "bound_by": by})
-            del x, w
+            # the overlap over 16 B rows: the chain's own time in the kernel
+            small, idx16 = pr.table_inputs(gen, (8,), pr.N_IDX, dev)
+            for tab, ix, rb in ((table, idx, row_bytes), (small, idx16, 16)):
+                ring = 32
+                rows_o, act = dg.ring_dma_gather(tab, ix, ring, ws=w, x=x,
+                                                 overlap=True)
+                torch.cuda.synchronize()
+                act_err = ((act.float() - act_ref.float()).abs().max()
+                           / act_ref.float().abs().max()).item()
+                exact = torch.equal(rows_o, dg.gather_reference(tab, ix))
+                del rows_o, act
+                ms = time_ms(lambda: dg.ring_dma_gather(
+                    tab, ix, ring, ws=w, x=x, overlap=True), 10)
+                ob, oby = bound_ms(flops, pr.gather_bytes(pr.N_IDX, rb)
+                                   + chain_bytes)
+                cases.append({"row_bytes": rb, "ring": ring,
+                              "overlap": True, "bitwise": exact,
+                              "chain_max_rel_err": act_err, "ms": ms,
+                              "bound_ms": ob, "bound_by": oby})
+            del x, w, act_ref, small, idx16
         del table, idx, ref
     for c in cases:
         log(f"[probes] ring_dma_gather {c['row_bytes']} B rows, ring "
@@ -1300,18 +1336,28 @@ def phase_probes(dev, results: dict) -> dict:
                f"{c['chain_max_rel_err']:.3e} (tol {CHAIN_TOL})"
                if c.get("overlap") else "")
             + f"; {c['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-            f"({c['bound_by']})"
+            f"({c['bound_by']}), {c['bound_ms'] / c['ms']:.1%} of it"
             + (f", index_select {c['library_ms']:.4f} ms"
                if "library_ms" in c else ""))
     if not all(c["bitwise"] and c.get("chain_max_rel_err", 0) <= CHAIN_TOL
                for c in cases):
         raise AssertionError(f"ring_dma_gather disagrees: {cases}")
-    best = min((c for c in cases if c["row_bytes"] == 2048
-                and not c.get("overlap")), key=lambda c: c["ms"])
+    over = {c["row_bytes"]: c["ms"] for c in cases if c.get("overlap")}
+    log(f"[probes] beside the chain (ring 32) the 2 KB gather adds "
+        f"{over[2048] - over[16]:.4f} ms to the 16 B-row overlap's "
+        f"{over[16]:.4f} ms")
+    best = {rb: min((c for c in cases if c["row_bytes"] == rb
+                     and not c.get("overlap")), key=lambda c: c["ms"])
+            for rb in (2048, 512)}
     out["ring_dma_gather"] = {
-        "variant": f"ring_dma_r{best['ring']}", "max_abs_err": 0.0,
-        "ms": best["ms"], "plain_ms": plain_ms, "bound_ms": best["bound_ms"],
-        "bound_by": best["bound_by"], "library_ms": best["library_ms"],
+        "variant": f"ring_dma_r{best[2048]['ring']}", "max_abs_err": 0.0,
+        "ms": best[2048]["ms"], "plain_ms": plain_ms,
+        "bound_ms": best[2048]["bound_ms"],
+        "bound_by": best[2048]["bound_by"],
+        "library_ms": best[2048]["library_ms"],
+        "ms_512b": best[512]["ms"], "bound_ms_512b": best[512]["bound_ms"],
+        "library_ms_512b": best[512]["library_ms"],
+        "overlap_ms": over[2048], "overlap_16b_ms": over[16],
         "shapes": cases}
     return out
 

@@ -49,6 +49,14 @@ def _so_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{tag}.so"
 
 
+def command(src: Path, out: Path) -> list[str]:
+    """The nvcc command that builds one source (including csrc/*.cuh) into
+    a shared library for sm_90a."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def build(names) -> None:
     """Compile every named source whose library is missing, one nvcc
     process each, all started together; raise if any fails."""
@@ -59,10 +67,8 @@ def build(names) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        proc = subprocess.Popen(command(CSRC / f"{name}.cu", tmp),
+                                stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, so, tmp, proc))
     failed = []

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the field kernels film_mlp.cu
-// and film_mlp_bwd.cu: warpgroup matrix products (wgmma) with B (and
-// optionally A) read from shared memory through matrix descriptors,
-// mbarriers, the 1-D bulk copy (TMA without a tensor map) and register
+// and film_mlp_bwd.cu and the gather dma_gather.cu: warpgroup matrix
+// products (wgmma) with B (and optionally A) read from shared memory
+// through matrix descriptors, mbarriers, the 1-D bulk copy (TMA without a
+// tensor map) both ways with its bulk groups and proxy fence, and register
 // rebalancing between warp roles.
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor Format" and the wgmma
@@ -323,6 +324,37 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// ---- the 1-D bulk copy, shared -> global, tracked by bulk groups ---------
+// bytes, both addresses: multiples of 16. Only the thread that committed a
+// group may wait on it.
+__device__ __forceinline__ void bulk_copy_s2g(void* dst, const void* src,
+                                              uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// returns once at most N of this thread's bulk groups have not yet read
+// their shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// returns once every bulk group of this thread has completed (its writes
+// performed)
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// orders this thread's ordinary shared-memory writes before a later bulk
+// copy (the async proxy) that reads them
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- register rebalancing between warp roles ------------------------------

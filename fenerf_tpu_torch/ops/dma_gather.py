@@ -3,10 +3,12 @@ ops/csrc/dma_gather.cu (port of the Pallas kernel
 scripts/profile_dma_gather.py::ring_dma_gather).
 
 `ring_dma_gather(table, idx, ring)` returns table[idx]: each CTA owns
-TILE indices and keeps at most `ring` row copies in flight. With overlap it
-also runs the bf16 chain of ops/mxu_chain.py over an (n, h) activation in
-the same kernel and returns that too (the TPU kernel computes it into a
-second output; its activation is all zeros, the port's defaults to zeros).
+TILE indices and keeps at most `ring` rows in flight (a power of two that
+shared memory holds), each moved by one bulk copy in and one out. With
+overlap it also runs the bf16 chain of ops/mxu_chain.py over an (n, h)
+activation in the same kernel and returns that too (the TPU kernel
+computes it into a second output; its activation is all zeros, the port's
+defaults to zeros).
 
 The table keeps the TPU layout (rows, 8, 128) at the public function, but
 any (rows, ...) bf16 table whose row is a multiple of 16 bytes is taken:
@@ -29,31 +31,24 @@ from fenerf_tpu_torch.ops import build
 from fenerf_tpu_torch.ops import mxu_chain
 
 TILE = 1024              # indices per CTA (ops/csrc/dma_gather.cu)
-_THREADS = {False: 256, True: 128}   # gather threads, alone / overlapped
 _CHAIN_ROWS = 64         # the overlapped chain's sub-tile
 
 
-def _streams(row_bytes: int, overlap: bool) -> int:
-    """Rows a CTA's gather threads copy at once (dma_gather.cu::team_size)."""
-    n = _THREADS[overlap]
-    team = 1
-    while team < row_bytes // 16 and team < n:
-        team *= 2
-    return n // team
-
-
 def rings(row_bytes: int, overlap: bool = False, h: int = 256) -> tuple:
-    """Every `ring` the kernel takes for this row size: a power-of-two
-    multiple (1 to 64) of the rows copied at once, within shared memory."""
-    s = _streams(row_bytes, overlap)
-    return tuple(s << k for k in range(7)
-                 if gather_smem(row_bytes, s << k, h, overlap)
-                 <= mxu_chain.MAX_SMEM)
+    """Every `ring` the kernel takes for this row size: the powers of two
+    from 1 up to what a CTA's shared memory holds."""
+    out, ring = [], 1
+    while gather_smem(row_bytes, ring, h, overlap) <= mxu_chain.MAX_SMEM:
+        out.append(ring)
+        ring *= 2
+    return tuple(out)
 
 
 def gather_smem(row_bytes: int, ring: int, h: int, overlap: bool) -> int:
-    """A CTA's shared memory (dma_gather.cu::dma_gather_smem)."""
-    return TILE * 4 + ring * row_bytes + (
+    """A CTA's shared memory (dma_gather.cu::dma_gather_smem): the tile's
+    indices, `ring` row slots with a barrier each, and with overlap the
+    chain's sub-tile."""
+    return TILE * 4 + ring * (row_bytes + 8) + (
         mxu_chain.group_smem(_CHAIN_ROWS, h, 8) if overlap else 0)
 
 
@@ -68,23 +63,28 @@ gather_reference.calls = 0
 _LIB = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    ops/csrc/dma_gather.cu on `lib`."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.dma_gather_forward.argtypes = [
+        vp, ctypes.c_longlong, vp, ci, ci, ci, vp, vp, vp, ci, ci, vp, ci,
+        vp]
+    lib.dma_gather_forward.restype = ci
+    lib.dma_gather_rw.argtypes = [ci] * 3
+    lib.dma_gather_rw.restype = ci
+    lib.dma_gather_smem.argtypes = [ci] * 4
+    lib.dma_gather_smem.restype = ci
+    lib.dma_gather_error_string.argtypes = [ci]
+    lib.dma_gather_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _load_library():
     """ops/csrc/dma_gather.cu, built for sm_90a into build/ and loaded."""
     global _LIB
     if _LIB is None:
-        lib = build.library("dma_gather")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.dma_gather_forward.argtypes = [
-            vp, ctypes.c_longlong, vp, ci, ci, ci, vp, vp, vp, ci, ci, vp,
-            ci, vp]
-        lib.dma_gather_forward.restype = ci
-        lib.dma_gather_rw.argtypes = [ci] * 3
-        lib.dma_gather_rw.restype = ci
-        lib.dma_gather_smem.argtypes = [ci] * 4
-        lib.dma_gather_smem.restype = ci
-        lib.dma_gather_error_string.argtypes = [ci]
-        lib.dma_gather_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = bind(build.library("dma_gather"))
     return _LIB
 
 

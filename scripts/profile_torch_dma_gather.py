@@ -5,16 +5,22 @@ NVIDIA GPU: the port's counterpart of scripts/profile_dma_gather.py.
       [--out chiprun_out/profile_torch_dma_gather.json]
 
 2^18 uniform indices into a 97^3-row bf16 table drawn on the card, through
-the hand-written CUDA kernel ops/csrc/dma_gather.cu:
+the hand-written CUDA kernel ops/csrc/dma_gather.cu (one bulk copy in and
+one out per row):
   ring_dma_r{R}        the TPU layout's 2 KB rows (97^3, 8, 128), 1.87 GB,
                        at most R row copies in flight per 1024-index CTA
   ring_overlap_r{R}    the same gather with the 11-layer bf16 chain over a
                        (2^18, 256) activation in the same kernel
   ring_overlap_16b_r{R}  the same kernel over a table of 16 B rows: the
                        chain's own time in that kernel, nearly no gather
+                       (ring_overlap_r{R} minus it: what the 2 KB gather
+                       adds beside the chain)
   ring_dma_512b_r{R}   the flagship table's own 512 B rows (97^3, 256)
 Context, not a kernel of the port: torch_index_select and
-torch_index_select_512b, the library call that computes the same gather.
+torch_index_select_512b, the library call that computes the same gather;
+torch_contiguous_copy and torch_contiguous_copy_512b, a copy of the first n
+rows in order, which moves the same bytes without the scatter (what the
+memory system gives this mix of reads and writes at best).
 
 Both tables exceed the 50 MB L2 many times over, so repeated calls on the
 same indices still read device memory. Prints each variant's ms (CUDA
@@ -61,6 +67,10 @@ def main(argv=None) -> int:
         run(f"ring_dma_r{ring}",
             lambda: dma_gather.ring_dma_gather(table, idx, ring), 0, nbytes)
     run("torch_index_select", lambda: table.index_select(0, idx), 0, nbytes)
+    out = torch.empty((n,) + tuple(table.shape[1:]), dtype=table.dtype,
+                      device=dev)
+    run("torch_contiguous_copy", lambda: out.copy_(table[:n]), 0, nbytes)
+    del out
     x, w = probes.chain_inputs(gen, n, probes.H, probes.LAYERS, dev)
     flops, chain_bytes = probes.chain_cost(n, probes.H, probes.LAYERS)
     for ring in OVERLAP_RINGS:
@@ -70,11 +80,11 @@ def main(argv=None) -> int:
             flops, nbytes + chain_bytes)
     del table
     small, idx16 = probes.table_inputs(gen, (8,), n, dev)
-    ring = dma_gather.rings(16, overlap=True)[0]
-    run(f"ring_overlap_16b_r{ring}",
-        lambda: dma_gather.ring_dma_gather(small, idx16, ring, ws=w, x=x,
-                                           overlap=True),
-        flops, probes.gather_bytes(n, 16) + chain_bytes)
+    for ring in OVERLAP_RINGS:
+        run(f"ring_overlap_16b_r{ring}",
+            lambda: dma_gather.ring_dma_gather(small, idx16, ring, ws=w, x=x,
+                                               overlap=True),
+            flops, probes.gather_bytes(n, 16) + chain_bytes)
     del small, x, w
     table, idx = probes.table_inputs(gen, probes.ROW_FLAGSHIP, n, dev)
     nbytes = probes.gather_bytes(n, 2 * table[0].numel())
@@ -82,6 +92,10 @@ def main(argv=None) -> int:
         run(f"ring_dma_512b_r{ring}",
             lambda: dma_gather.ring_dma_gather(table, idx, ring), 0, nbytes)
     run("torch_index_select_512b", lambda: table.index_select(0, idx), 0,
+        nbytes)
+    out = torch.empty((n,) + tuple(table.shape[1:]), dtype=table.dtype,
+                      device=dev)
+    run("torch_contiguous_copy_512b", lambda: out.copy_(table[:n]), 0,
         nbytes)
     probes.write_json(args.out, {"card": card,
                                  "iters": args.iters, "variants": res})

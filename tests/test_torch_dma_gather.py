@@ -125,15 +125,39 @@ def test_gather_takes_other_rows_and_ragged_counts(row_shape, n):
     np.testing.assert_array_equal(_bits(out), _bits(tt)[ti.numpy()])
 
 
+@pytest.mark.parametrize("row_bytes", [16, 48, 512, 2048, 8192])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_rings_follow_the_shared_memory_rule(row_bytes, overlap):
+    """The rings the card takes are the powers of two from 1 up to what a
+    CTA's 227 KB of shared memory holds: the tile's 1024 indices, a slot of
+    one row and an 8-byte barrier per ring entry, and beside the chain its
+    64-row sub-tile."""
+    got = dg.rings(row_bytes, overlap)
+    assert got == tuple(1 << k for k in range(len(got)))
+    chain = mc.group_smem(64, 256, 8) if overlap else 0
+    for ring in (1, got[-1], 2 * got[-1]):
+        assert dg.gather_smem(row_bytes, ring, 256, overlap) == (
+            4 * dg.TILE + ring * (row_bytes + 8) + chain)
+    assert dg.gather_smem(row_bytes, got[-1], 256, overlap) <= mc.MAX_SMEM
+    assert dg.gather_smem(row_bytes, 2 * got[-1], 256, overlap) > mc.MAX_SMEM
+
+
 def test_rings_the_card_takes():
-    """A CTA copies 2 rows of 2 KB (8 of 512 B) at once with 256 threads,
-    1 beside the chain; the ring is a power-of-two multiple of that within
-    227 KB of shared memory."""
-    assert dg.rings(2048) == (2, 4, 8, 16, 32, 64)
-    assert dg.rings(512) == (8, 16, 32, 64, 128, 256)
+    """The rings at the probes' row sizes; every ring the JAX script and
+    the port's probe script time is among them, at both row sizes and
+    beside the chain."""
+    spec = importlib.util.spec_from_file_location(
+        "_torch_profile_dma_gather",
+        ROOT / "scripts" / "profile_torch_dma_gather.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assert dg.rings(2048) == (1, 2, 4, 8, 16, 32, 64)
+    assert dg.rings(512) == (1, 2, 4, 8, 16, 32, 64, 128, 256)
     assert dg.rings(2048, overlap=True) == (1, 2, 4, 8, 16, 32)
-    assert max(dg.gather_smem(2048, r, 256, o) for o in (False, True)
-               for r in dg.rings(2048, o)) <= mc.MAX_SMEM
+    assert {16, 64} | set(script.RINGS) <= set(dg.rings(2048))
+    assert set(script.RINGS_512B) <= set(dg.rings(512))
+    assert set(script.OVERLAP_RINGS) <= set(dg.rings(2048, overlap=True))
+    assert set(script.OVERLAP_RINGS) <= set(dg.rings(16, overlap=True))
 
 
 def _bad_inputs():

@@ -37,6 +37,10 @@ def device():
     # more tiles than SMs, N % 128 != 0: a CTA's tile that runs into the
     # next element follows one that lay wholly in the first
     (FLAGSHIP, dict(grid_resolution=16), 2, 20000),
+    # every tile touches three or more batch elements: the FiLM rows come
+    # from device memory, not from the staged tables
+    (FLAGSHIP, dict(grid_resolution=16), 3, 37),
+    (FLAGSHIP, dict(grid_resolution=16), 5, 20),
     ("SIRENBASELINESEMANTICDISENTANGLE", {}, 2, 333),
     ("SPATIALSIRENSEMANTIC", {}, 2, 257),                  # label_film
     ("EmbeddingPiGAN128SEMANTICDISENTANGLE", dict(grid_resolution=16), 2, 500),
@@ -94,6 +98,8 @@ def test_wrapper_rejects_bad_input(device):
     (FLAGSHIP, dict(grid_resolution=16), 3, 1001),         # ragged tiles
     (FLAGSHIP, dict(grid_resolution=16), 3, 200),          # ragged, 2 tiles
     (FLAGSHIP, dict(grid_resolution=16), 1, 37),           # < 64 rows
+    # more tiles than SMs, N % 128 != 0
+    (FLAGSHIP, dict(grid_resolution=16), 2, 20000),
     ("SIRENBASELINESEMANTICDISENTANGLE", {}, 2, 333),
     ("SIRENBASELINESEMANTICDISENTANGLE_debug", {}, 2, 100),  # label sigmoid
     ("SPATIALSIRENBASELINESEMANTIC", {}, 1, 257),          # single latent
@@ -374,6 +380,42 @@ def test_gather_kernel_equals_plain(device, row_shape, n):
         got = dg.ring_dma_gather(table, idx, ring)
         assert dg.ring_dma_gather.launches == launches + 1
         assert torch.equal(got, ref), ring
+
+
+@pytest.mark.parametrize("row_shape", [(8, 128), (256,), (8,)])
+def test_gather_kernel_zeroes_out_of_range_rows(device, row_shape):
+    """An index < 0 or >= rows loads nothing and gives a row of zeros, at
+    every ring, alone and beside the chain; the rows around it are
+    gathered as usual."""
+    from fenerf_tpu_torch.ops import dma_gather as dg
+    from fenerf_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    rows, n = 3000, 1024 + 300
+    table = torch.randn((rows,) + row_shape, generator=gen, device=device,
+                        dtype=torch.bfloat16)
+    idx = torch.randint(0, rows, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    bad = torch.randperm(n, generator=torch.Generator().manual_seed(0))[:97]
+    idx[bad.to(device)] = torch.tensor(
+        [-1, rows, -(2 ** 31), 2 ** 31 - 1, rows + 5] * 20,
+        dtype=torch.int32, device=device)[:97]
+    idx[:3] = torch.tensor([-7, rows, 0], dtype=torch.int32, device=device)
+    ok = (idx >= 0) & (idx < rows)
+    # the plain version of a gather that zeroes what lies outside the table
+    ref = dg.gather_reference(table, torch.where(ok, idx, 0))
+    ref[~ok] = 0
+    row_bytes = 2 * table[0].numel()
+    for ring in dg.rings(row_bytes):
+        got = dg.ring_dma_gather(table, idx, ring)
+        assert torch.equal(got, ref), ring
+    x, w = probes.chain_inputs(gen, n, 256, 2, device)
+    for ring in dg.rings(row_bytes, overlap=True)[::3]:
+        got, act = dg.ring_dma_gather(table, idx, ring, ws=w, x=x,
+                                      overlap=True)
+        assert torch.equal(got, ref), ring
+        assert torch.equal(act, dg.ring_dma_gather(
+            table, idx.clamp(0, rows - 1), ring, ws=w, x=x, overlap=True)[1])
 
 
 @pytest.mark.parametrize("n,ring", [(1024 + 100, 32), (2048, 1), (300, 8)])
