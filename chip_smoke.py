@@ -12,18 +12,19 @@ kernels (ops/csrc/film_mlp_bwd.cu) and the table-fold kernel
 kernels on (FENERF_RAY_KERNELS=auto: ops/csrc/ray_finalize.cu); and the
 ceiling-probe scripts (scripts/profile_torch_{mxu_chain,epilogue_overlap,
 dma_gather}.py) through their kernels (ops/csrc/mxu_chain.cu,
-ops/csrc/dma_gather.cu). Every kernel is built here from the checkout.
+ops/csrc/mxu_wide.cu, ops/csrc/dma_gather.cu). Every kernel is built here from the checkout.
 
 Phases (any failure exits non-zero):
   1. card and build: card name and power limit, torch / CUDA versions,
-     all six kernel libraries built in parallel (one nvcc each); per field
-     library the registers and spills of each kernel and its count of
-     HGMMA (wgmma) and HMMA (mma.sync / wmma) instructions in the SASS
-     (cuobjdump), failing if film_mlp's kernel or film_mlp_bwd's row or dW
-     kernel issues no HGMMA, or if ptxas notes (C7520 / C7512) say it
-     serialized a field library's wgmma; and the gather kernel's bulk
-     copies (UBLKCP), failing without them or with any per-thread cp.async
-     piece (LDGSTS);
+     all seven kernel libraries built in parallel (one nvcc each); per
+     field, chain and gather library the registers and spills of each
+     kernel and its count of HGMMA (wgmma) and HMMA (mma.sync / wmma)
+     instructions in the SASS (cuobjdump), failing if film_mlp's kernel,
+     film_mlp_bwd's row or dW kernel or mxu_chain's chain kernel issues no
+     HGMMA or any HMMA, if mxu_wide's kernel issues no HMMA, or if ptxas
+     notes (C7520 / C7512) say it serialized a wgmma library's products;
+     and the gather kernel's bulk copies (UBLKCP), failing without them or
+     with any per-thread cp.async piece (LDGSTS);
   2. the forward kernel against its plain torch version at the serving
      shape (B=1, N=4096x48), two ragged ones (N not a multiple of the
      tile; B=2, N=20000 has tiles that run from one batch element into the
@@ -73,7 +74,8 @@ Phases (any failure exits non-zero):
      called), then each probe kernel against its plain version at those
      shapes (the chains at 11 layers and width 512; the FiLM epilogue at
      the field's weight scale over 11 layers and on the script's draw over
-     1; the gather bit-exact with 2 KB and 512 B rows at the probe
+     1, plain and folded; every variant of a chain bitwise equal to the
+     others; the gather bit-exact with 2 KB and 512 B rows at the probe
      script's rings, and beside the chain over 2 KB and over 16 B rows,
      whose difference is what the gather adds beside the chain), timed
      beside the plain version and the library call (index_select, with
@@ -138,6 +140,7 @@ def phase_card():
     for mod in (film_mlp, film_mlp_grad, ray_finalize, zexp_fold, mxu_chain,
                 dma_gather):
         mod._load_library()
+    mxu_chain._load_library("mxu_wide")
     log(f"[build] {', '.join(build.KERNELS)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, out in build.BUILD_LOG.items():
@@ -147,9 +150,13 @@ def phase_card():
     phase_sass(build)
 
 
-# the kernels that must issue wgmma (SASS HGMMA), by library
+# the kernels that must issue wgmma (SASS HGMMA) and no mma.sync / wmma
+# (HMMA), by library
 HOPPER_KERNELS = {"film_mlp": ("film_mlp_kernel",),
-                  "film_mlp_bwd": ("bwd_rows_kernel", "dw_kernel")}
+                  "film_mlp_bwd": ("bwd_rows_kernel", "dw_kernel"),
+                  "mxu_chain": ("chain_kernel",)}
+# the kernels still on wmma (HMMA), by library
+WMMA_KERNELS = {"mxu_wide": ("wide_kernel",)}
 # the kernels that must move their rows by bulk copies (SASS UBLKCP, the
 # 1-D cp.async.bulk) and by no per-thread cp.async piece (LDGSTS), by library
 BULK_KERNELS = {"dma_gather": ("gather_kernel",)}
@@ -158,14 +165,15 @@ SASS_OPS = ("HGMMA", "HMMA", "UBLKCP", "LDGSTS")
 
 def phase_sass(build):
     """Registers, spills and the HGMMA / HMMA / UBLKCP / LDGSTS instruction
-    counts of every kernel of the field and gather libraries (cuobjdump);
-    fails if a kernel of HOPPER_KERNELS issues no HGMMA, or one of
-    BULK_KERNELS no UBLKCP or any LDGSTS."""
+    counts of every kernel of the field, chain and gather libraries
+    (cuobjdump); fails if a kernel of HOPPER_KERNELS issues no HGMMA or any
+    HMMA, one of WMMA_KERNELS no HMMA, or one of BULK_KERNELS no UBLKCP or
+    any LDGSTS."""
     import re
     import subprocess
 
     cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
-    for lib in (*HOPPER_KERNELS, *BULK_KERNELS):
+    for lib in (*HOPPER_KERNELS, *WMMA_KERNELS, *BULK_KERNELS):
         so = str(build._so_path(lib))
         usage = subprocess.run([cuobjdump, "--dump-resource-usage", so],
                                capture_output=True, text=True,
@@ -202,8 +210,15 @@ def phase_sass(build):
                 f"(spill) {lo} B, " + ", ".join(f"{k} {v}"
                                                 for k, v in c.items()))
         for k in HOPPER_KERNELS.get(lib, ()):
-            if not any(k in fn and c["HGMMA"] > 0 for fn, c in counts.items()):
-                raise AssertionError(f"{lib}: {k} issues no HGMMA (wgmma)")
+            fns = [fn for fn in counts if k in fn]
+            if not fns or any(counts[fn]["HGMMA"] == 0 or counts[fn]["HMMA"]
+                              for fn in fns):
+                raise AssertionError(f"{lib}: {k} must issue HGMMA (wgmma) "
+                                     f"and no HMMA: "
+                                     f"{ {fn: counts[fn] for fn in fns} }")
+        for k in WMMA_KERNELS.get(lib, ()):
+            if not any(k in fn and c["HMMA"] > 0 for fn, c in counts.items()):
+                raise AssertionError(f"{lib}: {k} issues no HMMA (wmma)")
         for k in BULK_KERNELS.get(lib, ()):
             fns = [fn for fn in counts if k in fn]
             if not fns or any(counts[fn]["UBLKCP"] == 0
@@ -1167,7 +1182,7 @@ def phase_probe_scripts() -> tuple[dict, dict]:
 
 def _chain_variant(name: str) -> dict:
     """tile / interleave of a probe script's variant name (chain_t64, ilv2_t128,
-    epi_ilv4_t128, wide_t32)."""
+    epi_ilv2_t128, wide_t32)."""
     tile = int(name.rsplit("_t", 1)[1])
     k = int(name.split("ilv")[1].split("_")[0]) if "ilv" in name else 1
     return {"tile": tile, "interleave": k}
@@ -1224,6 +1239,8 @@ def phase_probes(dev, results: dict) -> dict:
             f"{layers} torch.matmul bf16 calls {mm_ms:.4f} ms")
         if not err / scale <= CHAIN_TOL:
             raise AssertionError(f"{kname} disagrees with plain: {errs}")
+        if not same:
+            raise AssertionError(f"{kname}: variants {names} differ")
         out[kname] = {"variant": best, "max_abs_err": err,
                       "max_rel_err": err / scale, "variants_equal": same,
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -1234,16 +1251,22 @@ def phase_probes(dev, results: dict) -> dict:
     # --- the FiLM chain: field scale over 11 layers, script draw over 1 ---
     n, h, layers = pr.N_PTS, pr.H, pr.LAYERS
     x = pr.activations(gen, n, h, dev)
-    rows, errs_max = [], []
+    rows, errs_max, unequal = [], [], []
     for scale, nl in (("field", layers), ("script", 1)):
         w, b, f, p = pr.film_inputs(gen, nl, h, dev, scale)
         for fold in (False, True):
             kind = "fold" if fold else "epi"
             ref = mc.epi_reference(x, w, b, f, p, fold=fold).float()
-            for k in (k for k in epi if k.startswith(kind + "_")):
-                got = mc.run_epi(x, w, b, f, p, fold=fold,
-                                 **_chain_variant(k)).float()
-                d = got - ref
+            names = [k for k in epi if k.startswith(kind + "_")]
+            first = None
+            for k in names:
+                out_k = mc.run_epi(x, w, b, f, p, fold=fold,
+                                   **_chain_variant(k))
+                if first is None:
+                    first = out_k
+                elif not torch.equal(out_k, first):
+                    unequal.append((scale, k, names[0]))
+                d = out_k.float() - ref
                 mx = d.abs().max().item()
                 rms = d.square().mean().sqrt().item()
                 ok = (mx <= EPI1_TOL if nl == 1 else
@@ -1251,8 +1274,8 @@ def phase_probes(dev, results: dict) -> dict:
                 rows.append({"scale": scale, "layers": nl, "variant": k,
                              "max_abs_err": mx, "rms_err": rms, "ok": ok})
                 errs_max.append(mx)
-                del got, d
-            del ref
+                del out_k, d
+            del ref, first
         if scale == "script":
             best = min((k for k in epi if k.startswith("epi_")),
                        key=lambda k: epi[k]["ms"])
@@ -1261,7 +1284,7 @@ def phase_probes(dev, results: dict) -> dict:
             ms = time_ms(lambda: mc.run_epi(x, wl, bl, fl, pl, **v), 10)
             plain_ms = time_ms(lambda: mc.epi_reference(x, wl, bl, fl, pl),
                                3, warmup=1)
-            chain_ms = time_ms(lambda: mc.run_chain(x, wl, v["tile"]), 10)
+            chain_ms = time_ms(lambda: mc.run_chain(x, wl, **v), 10)
             del wl
     for r in rows:
         log(f"[probes] run_epi {r['variant']} at the {r['scale']} scale over "
@@ -1270,14 +1293,19 @@ def phase_probes(dev, results: dict) -> dict:
                 f"max {EPI1_TOL}" if r["layers"] == 1 else
                 f"RMS {EPI_RMS_TOL}, max {EPI_MAX_TOL}") + ")")
     bound, by = bound_ms(*pr.chain_cost(n, h, layers))
+    log(f"[probes] run_epi variants bitwise equal to each other: "
+        f"{not unequal} {unequal}")
     log(f"[probes] run_epi {best} (script draw, 11 layers) {ms:.4f} ms, "
-        f"run_chain at its tile {chain_ms:.4f} ms (the epilogue adds "
+        f"run_chain at its variant {chain_ms:.4f} ms (the epilogue adds "
         f"{ms - chain_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
         f"{bound:.4f} ms ({by})")
     if not all(r["ok"] for r in rows):
         raise AssertionError("run_epi disagrees with plain: "
                              f"{[r for r in rows if not r['ok']]}")
+    if unequal:
+        raise AssertionError(f"run_epi: variants differ: {unequal}")
     out["run_epi"] = {"variant": best, "max_abs_err": max(errs_max),
+                      "variants_equal": not unequal,
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                       "bound_by": by, "library_ms": None,
                       "chain_ms": chain_ms, "shapes": rows}
@@ -1429,7 +1457,7 @@ def main() -> int:
          **probes[name]}
         for name, source, replaces in (
             ("run_chain", "mxu_chain.cu", "scripts/profile_mxu_chain.py:50"),
-            ("run_wide", "mxu_chain.cu", "scripts/profile_mxu_chain.py:86"),
+            ("run_wide", "mxu_wide.cu", "scripts/profile_mxu_chain.py:86"),
             ("run_epi", "mxu_chain.cu",
              "scripts/profile_epilogue_overlap.py:53"),
             ("ring_dma_gather", "dma_gather.cu",

@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 # every kernel source of the port (ops/csrc/<name>.cu)
 KERNELS = ("film_mlp", "film_mlp_bwd", "ray_finalize", "zexp_fold",
-           "mxu_chain", "dma_gather")
+           "mxu_chain", "mxu_wide", "dma_gather")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 BUILD_LOG: dict[str, str] = {}   # name -> nvcc output of this process's build
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,17 +1,14 @@
-// One warp group's row tile through an L-layer bf16 chain, for NVIDIA Hopper
-// (sm_90a). Included by mxu_chain.cu (the ceiling probes run_chain /
-// run_wide / run_epi) and dma_gather.cu (the gather overlapped with the
-// chain).
+// One warp group's row tile through an L-layer bf16 chain on nvcuda::wmma,
+// for NVIDIA Hopper (sm_90a). Included by mxu_wide.cu (the ceiling probe
+// run_wide) and dma_gather.cu (the gather overlapped with the chain);
+// run_chain and run_epi run on wgmma in mxu_chain.cu.
 //
-// Layer i:  a <- bf16(epi(a @ W[i]))  with bf16 operands, f32 accumulation
-// and round-to-nearest-even output; epi is
-//   EPI_NONE  identity                               (run_chain, run_wide)
-//   EPI_FILM  fast_sin(f[i] * (y + b[i]) + p[i])     (run_epi)
-//   EPI_FOLD  fast_sin(y + q[i])                     (run_epi(fold=True):
-//             W[i] pre-scaled to bf16(W[i] * bf16(f[i])), q[i] = f*b + p)
+// Layer i:  a <- bf16(a @ W[i])  with bf16 operands, f32 accumulation and
+// round-to-nearest-even output.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work):
+// Design (simple and right first; at width 512 a wgmma A operand no longer
+// fits in registers and has to come from shared memory, which is later
+// work):
 //   * a group of `warps` warps owns `rows` (a multiple of 32) rows; its
 //     warps form a grid of 32 x 64 warp tiles, rows / 32 high and
 //     warps / (rows / 32) wide, so one pass computes nc = 64 * that width
@@ -25,12 +22,10 @@
 //     the next chunk (across pass and layer boundaries) in flight while the
 //     current one feeds the tensor cores;
 //   * nvcuda::wmma bf16 16x16x16 fragments, f32 accumulators (2 x 4 per
-//     warp); the epilogue goes through a 1 KB per-warp f32 tile, each lane
+//     warp); the rounding goes through a 1 KB per-warp f32 tile, each lane
 //     finishing 8 consecutive columns of one row with 16-byte accesses;
 //   * a group synchronises with its own named barrier, so several groups
-//     in one CTA (run_chain's interleave) run their chains independently
-//     and the warp schedulers overlap one group's epilogue with another's
-//     products.
+//     in one CTA run their chains independently.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,14 +43,9 @@ constexpr int WM = 32, WN = 64;      // warp tile
 constexpr int FM = WM / 16, FN = WN / 16;
 constexpr int MAX_SMEM = 232448;     // a CTA's dynamic shared memory on H100
 
-enum Epi { EPI_NONE = 0, EPI_FILM = 1, EPI_FOLD = 2 };
-
 struct Params {
   const bf16* x;    // (n, h)
   const bf16* w;    // (layers, h, h): layer i computes a @ w[i]
-  const float* b;   // (layers, h) FILM bias
-  const float* f;   // (layers, h) FILM frequency
-  const float* p;   // (layers, h) FILM phase; FOLD: f * b + p
   bf16* out;        // (n, h)
   int n, h, layers;
 };
@@ -88,22 +78,6 @@ __host__ __device__ inline Layout group_layout(int rows, int h, int warps) {
   return L;
 }
 
-// fenerf_tpu/ops/fast_math.py: _poly_sin(_reduce(x)) with the degree-9
-// coefficients _C9, exactly as ops/csrc/film_mlp.cu: the reduction rounds
-// half to even (rintf, as jnp.round) and is kept free of FMA contraction.
-__device__ __forceinline__ float fast_sin(float x) {
-  const float kTwoPi = 6.283185307179586f;
-  const float kInvTwoPi = 0.15915494309189535f;
-  const float r = __fsub_rn(x, __fmul_rn(kTwoPi, rintf(__fmul_rn(x, kInvTwoPi))));
-  const float r2 = r * r;
-  float acc = 2.1732100680830095e-06f;
-  acc = acc * r2 + -0.00019316182196017474f;
-  acc = acc * r2 + 0.008312382933816725f;
-  acc = acc * r2 + -0.16663258204297426f;
-  acc = acc * r2 + 0.999984586774494f;
-  return acc * r;
-}
-
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
@@ -130,7 +104,6 @@ __device__ __forceinline__ void group_sync(int id, int nthreads) {
 // P.n are computed on zeros and not written). `gt` is the thread's index in
 // its group of `warps` warps, `bar` the group's barrier id, `smem` the
 // group's Layout-sized region.
-template <int EPI>
 __device__ void run_tile(const Params& P, int row0, int rows,
                          unsigned char* smem, const Layout& L, int gt,
                          int warps, int bar) {
@@ -223,7 +196,7 @@ __device__ void run_tile(const Params& P, int row0, int rows,
         group_sync(bar, nthreads);  // wbuf[g & 1] is free for chunk g + 2
       }
       if (!active) continue;
-      // epilogue of this pass: columns [n0 + wc * WN, + WN) of dst. Other
+      // rounding of this pass: columns [n0 + wc * WN, + WN) of dst. Other
       // warps read only src until the next layer, which starts after a
       // group barrier.
       const int er = lane >> 1, ec = (lane & 1) * 8;
@@ -237,26 +210,7 @@ __device__ void run_tile(const Params& P, int row0, int rows,
           const int row = wr * WM + i * 16 + er;
           const float4* sv = reinterpret_cast<const float4*>(scr + er * 16 + ec);
           const float4 s0 = sv[0], s1 = sv[1];
-          float v[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-          if (EPI == EPI_FILM) {
-            const size_t o = (size_t)l * h + col;
-            const float4* bv = reinterpret_cast<const float4*>(P.b + o);
-            const float4* fv = reinterpret_cast<const float4*>(P.f + o);
-            const float4* pv = reinterpret_cast<const float4*>(P.p + o);
-            const float4 b0 = bv[0], b1 = bv[1], f0 = fv[0], f1 = fv[1],
-                         p0 = pv[0], p1 = pv[1];
-            const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-            const float ff[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
-            const float pp[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-#pragma unroll
-            for (int e = 0; e < 8; ++e) v[e] = fast_sin(ff[e] * (v[e] + bb[e]) + pp[e]);
-          } else if (EPI == EPI_FOLD) {
-            const float4* qv = reinterpret_cast<const float4*>(P.p + (size_t)l * h + col);
-            const float4 q0 = qv[0], q1 = qv[1];
-            const float qq[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-#pragma unroll
-            for (int e = 0; e < 8; ++e) v[e] = fast_sin(v[e] + qq[e]);
-          }
+          const float v[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
           __align__(16) bf16 packed[8];
 #pragma unroll
           for (int e = 0; e < 8; ++e) packed[e] = __float2bfloat16_rn(v[e]);

@@ -160,8 +160,7 @@ gather_overlap_kernel(const unsigned char* __restrict__ table,
   if (threadIdx.x < CHAIN_THREADS) {
     const int end = min(row0 + TILE, P.n);
     for (int r = row0; r < end; r += CHAIN_ROWS) {
-      chain::run_tile<chain::EPI_NONE>(P, r, CHAIN_ROWS, smem, L,
-                                       threadIdx.x, 8, 1);
+      chain::run_tile(P, r, CHAIN_ROWS, smem, L, threadIdx.x, 8, 1);
       // the copy-out is done before the next x
       chain::group_sync(1, CHAIN_THREADS);
     }
@@ -223,8 +222,8 @@ int dma_gather_forward(const void* table, long long n_rows, const void* idx,
     gather_kernel<<<blocks, 32 * min(ring, GATHER_WARPS), smem, s>>>(
         t, n_rows, ix, n, row_bytes, ring, o);
   } else {
-    chain::Params P{(const bf16*)x, (const bf16*)w, nullptr, nullptr, nullptr,
-                    (bf16*)act, n, h, layers};
+    chain::Params P{(const bf16*)x, (const bf16*)w, (bf16*)act, n, h,
+                    layers};
     err = cudaFuncSetAttribute(gather_overlap_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the field kernels film_mlp.cu
-// and film_mlp_bwd.cu and the gather dma_gather.cu: warpgroup matrix
+// and film_mlp_bwd.cu, the chain probes mxu_chain.cu and the gather
+// dma_gather.cu: warpgroup matrix
 // products (wgmma) with B (and optionally A) read from shared memory
 // through matrix descriptors, mbarriers, the 1-D bulk copy (TMA without a
 // tensor map) both ways with its bulk groups and proxy fence, and register
@@ -370,6 +371,10 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // a barrier of `threads` threads (a multiple of 32) on hardware barrier id
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// counts this warp's threads towards barrier id's `threads` without waiting
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // fenerf_tpu/ops/fast_math.py: _poly_sin(_reduce(x)) with the degree-9

@@ -75,6 +75,13 @@ def chain_cost(n: int, h: int, layers: int) -> tuple[int, int]:
     return 2 * n * h * h * layers, 2 * n * h * 2 + layers * h * h * 2
 
 
+def chain_variant(tile: int, interleave: int) -> str:
+    """A chain variant's name in the probe scripts: chain_t64, chain_t128,
+    ilv2_t128."""
+    return (f"chain_t{tile}" if interleave == 1
+            else f"ilv{interleave}_t{tile}")
+
+
 def gather_bytes(n: int, row_bytes: int) -> int:
     """Each index read, its row read and written."""
     return n * (2 * row_bytes + 4)

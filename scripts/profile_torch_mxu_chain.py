@@ -4,13 +4,16 @@ counterpart of scripts/profile_mxu_chain.py.
   python scripts/profile_torch_mxu_chain.py [--iters 10]
       [--out chiprun_out/profile_torch_mxu_chain.json]
 
-Variants, all through the hand-written CUDA kernel ops/csrc/mxu_chain.cu:
-  chain_t{T}     the 11-layer bf16 chain a <- bf16(a @ W) over (2^20, 256),
-                 one CTA per T rows
-  ilv{k}_t{T}    the same, each T-row tile split into k independent warp
-                 groups (the TPU kernel's k-way row interleave)
-  wide_t{T}      5 layers at width 512 over (2^19, 512): the same FLOPs per
-                 point, wider products
+Variants, through the hand-written CUDA kernels ops/csrc/mxu_chain.cu
+(wgmma) and ops/csrc/mxu_wide.cu (wmma):
+  chain_t64      the 11-layer bf16 chain a <- bf16(a @ W) over (2^20, 256),
+                 each consumer warpgroup on its own 64-row tiles
+  chain_t128     the same, both consumers on one 128-row tile, every weight
+                 stage feeding both (half the L2 weight stream)
+  ilv2_t128      chain_t128 with the two consumers one pass apart (the TPU
+                 kernel's k-way row interleave, k = 2)
+  wide_t{T}      5 layers at width 512 over (2^19, 512), T-row CTAs: the
+                 same FLOPs per point, wider products
 Context, not a kernel of the port: torch_matmul_chain / torch_matmul_wide,
 the same number of torch.matmul bf16 calls in a row (bf16 reductions in
 f32), which round to bf16 between layers only because their outputs are
@@ -52,10 +55,8 @@ def main(argv=None) -> int:
     x, w = probes.chain_inputs(gen, probes.N_PTS, probes.H, probes.LAYERS,
                                dev)
     shape = (probes.N_PTS, probes.H, probes.LAYERS)
-    for tile in mxu_chain.TILES:
-        run(f"chain_t{tile}", lambda: mxu_chain.run_chain(x, w, tile), *shape)
-    for tile, k in ((64, 2), (128, 2), (128, 4)):
-        run(f"ilv{k}_t{tile}",
+    for tile, k in mxu_chain.VARIANTS:
+        run(probes.chain_variant(tile, k),
             lambda: mxu_chain.run_chain(x, w, tile, interleave=k), *shape)
 
     def matmuls(a, ws):

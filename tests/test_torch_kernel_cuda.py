@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels (fenerf_tpu_torch/ops/csrc/film_mlp.cu,
-film_mlp_bwd.cu, ray_finalize.cu, zexp_fold.cu, mxu_chain.cu,
+film_mlp_bwd.cu, ray_finalize.cu, zexp_fold.cu, mxu_chain.cu, mxu_wide.cu,
 dma_gather.cu) against their plain torch versions on the card, and their
 wrappers' input checks. Skips without an NVIDIA GPU.
 
@@ -306,36 +306,50 @@ def test_ray_and_fold_wrappers_reject_bad_input(device):
         zf.fold_zexp(dt, (2, 3, 3, 4))
 
 
-# the ceiling probes (ops/csrc/mxu_chain.cu, dma_gather.cu). Chains: bf16
-# operands on both sides, f32 sums in another order (max|diff|/max|plain|)
+# the ceiling probes (ops/csrc/mxu_chain.cu, mxu_wide.cu, dma_gather.cu).
+# Chains: bf16 operands on both sides, f32 sums in another order
+# (max|diff|/max|plain|)
 CHAIN_TOL = 2e-2
 
 
 @pytest.mark.parametrize("n,h,layers,tile,k", [
-    (1000, 256, 11, 64, 1), (1001, 256, 11, 128, 4), (77, 64, 3, 32, 1),
-    (130, 512, 5, 64, 2), (300, 512, 5, 32, 1), (65, 192, 2, 128, 2)])
+    (1000, 256, 11, 64, 1), (1001, 256, 11, 128, 2), (77, 64, 3, 64, 1),
+    (130, 512, 5, 64, 1), (300, 512, 5, 32, 1), (65, 192, 2, 128, 2),
+    # fewer rows than a warpgroup; a second consumer with no rows at all;
+    # width 128 in one pass; one layer over many tiles, where the next x
+    # tile's copy is issued as soon as a buffer is released
+    (37, 256, 11, 128, 1), (100, 256, 3, 128, 2), (300, 128, 4, 128, 1),
+    (1 << 18, 256, 1, 128, 1)])
 def test_chain_kernel_matches_plain(device, n, h, layers, tile, k):
+    """Widths up to 256 on run_chain's wgmma kernel, 512 on run_wide's
+    wmma kernel."""
     from fenerf_tpu_torch.ops import mxu_chain as mc
     from fenerf_tpu_torch.ops import probes
 
     gen = torch.Generator(device=device).manual_seed(7)
     x, w = probes.chain_inputs(gen, n, h, layers, device)
-    launches = mc.run_chain.launches
-    got = mc.run_chain(x, w, tile, interleave=k)
-    assert mc.run_chain.launches == launches + 1
+    fn = mc.run_wide if h > mc.MAX_WIDTH else mc.run_chain
+    launches = fn.launches
+    got = (mc.run_wide(x, w, tile) if fn is mc.run_wide
+           else mc.run_chain(x, w, tile, interleave=k))
+    assert fn.launches == launches + 1
     ref = mc.chain_reference(x, w)
     torch.cuda.synchronize()
     assert got.shape == (n, h) and got.dtype == torch.bfloat16
     err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert err.item() <= CHAIN_TOL, err.item()
     # tiles and interleaves change the schedule, not a row's sums
-    assert torch.equal(got, mc.run_chain(x, list(w), 64))
-    if h == 512:
+    if fn is mc.run_wide:
+        assert torch.equal(got, mc.run_wide(x, list(w), 64))
         assert torch.equal(got, mc.run_wide(x, w, 32))
+    else:
+        for tile2, k2 in mc.VARIANTS:
+            assert torch.equal(got, mc.run_chain(x, list(w), tile2, k2))
 
 
 @pytest.mark.parametrize("n,tile,k", [(1000, 64, 1), (1001, 128, 2),
-                                      (333, 128, 4), (40, 32, 1)])
+                                      (333, 128, 2), (40, 64, 1),
+                                      (333, 128, 1), (1 << 18, 128, 1)])
 @pytest.mark.parametrize("fold", [False, True])
 def test_epi_kernel_matches_plain(device, n, tile, k, fold):
     """At the field's weight scale over 11 layers (RMS-held: bf16 flips
@@ -359,6 +373,24 @@ def test_epi_kernel_matches_plain(device, n, tile, k, fold):
             assert d.square().mean().sqrt().item() <= 5e-3
             assert d.abs().max().item() <= 2.5e-1
         assert torch.equal(got, mc.run_epi(x, w, b, f, p, 64, fold=fold))
+
+
+@pytest.mark.parametrize("h", [64, 128, 192, 256])
+@pytest.mark.parametrize("fold", [False, True])
+def test_chain_pack_kernel_writes_the_plain_layout(device, h, fold):
+    """mxu_chain.cu's pack kernel writes pack_chain_weights' bytes (held to
+    the wgmma layout rule on the CPU by tests/test_torch_chain_layout.py)."""
+    from fenerf_tpu_torch.ops import mxu_chain as mc
+    from fenerf_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    w, b, f, p = probes.film_inputs(gen, 3, h, device, "script")
+    got, q = mc.pack_on_device(w, b, f, p, fold=fold)
+    want, q_want = mc.pack_chain_weights(w, b, f, p, fold=fold)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    if fold:
+        assert torch.equal(q, q_want)
 
 
 @pytest.mark.parametrize("row_shape", [(8, 128), (256,), (24,), (8,)])
@@ -436,8 +468,8 @@ def test_gather_overlap_kernel_matches_plain(device, n, ring):
     assert torch.equal(rows, dg.gather_reference(table, idx))
     err = (act.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert err.item() <= CHAIN_TOL, err.item()
-    # the same 64-row chain as run_chain's
-    assert torch.equal(act, mc.run_chain(x, w, 64))
+    # the same 64-row wmma chain as run_wide's (chain.cuh::run_tile)
+    assert torch.equal(act, mc.run_wide(x, w, 64))
     rows0, act0 = dg.ring_dma_gather(table, idx, ring, ws=list(w),
                                      overlap=True)
     assert torch.equal(rows0, rows) and not act0.any()
@@ -445,18 +477,25 @@ def test_gather_overlap_kernel_matches_plain(device, n, ring):
 
 def test_probe_layouts_mirror_the_kernels(device):
     """The wrappers' shared-memory and ring arithmetic equals the
-    libraries' own."""
+    libraries' own: the wgmma chain's stages and shared memory, the wmma
+    chain's, the gather's rings."""
     from fenerf_tpu_torch.ops import dma_gather as dg
     from fenerf_tpu_torch.ops import mxu_chain as mc
 
     lib = mc._load_library()
-    for tile in mc.TILES:
-        for k in mc.INTERLEAVES:
-            if tile % k or (tile // k) % 32:
-                continue
-            for h in (64, 256, 512):
-                assert lib.mxu_chain_smem(tile, k, h) == mc.chain_smem(
-                    tile, k, h)
+    for epi, code in mc._EPI.items():
+        for h in (64, 128, 192, 256):
+            for layers in (1, 11, 20, 30):
+                if mc.chain_stages(h, layers, epi) < 1:
+                    continue
+                assert lib.mxu_chain_stages(h, layers, code) == \
+                    mc.chain_stages(h, layers, epi)
+                assert lib.mxu_chain_smem(h, layers, code) == \
+                    mc.chain_smem(h, layers, epi)
+    wlib = mc._load_library("mxu_wide")
+    for tile in mc.WIDE_TILES:
+        for h in (64, 256, 512):
+            assert wlib.mxu_wide_smem(tile, h) == mc.wide_smem(tile, h)
     glib = dg._load_library()
     for row_bytes in (48, 512, 2048, 8192):
         for overlap in (0, 1):
@@ -475,6 +514,14 @@ def test_probe_wrappers_reject_bad_input(device):
     w = torch.zeros(2, 256, 256, device=device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="ws"):
         mc.run_chain(x, w.cpu())
+    # the x tile comes in by one bulk copy: 16-byte aligned rows
+    flat = torch.zeros(64 * 256 + 1, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        mc.run_chain(flat[1:].view(64, 256), w)
+    with pytest.raises(ValueError, match="run_wide"):
+        mc.run_chain(torch.zeros(8, 512, device=device, dtype=torch.bfloat16),
+                     torch.zeros(1, 512, 512, device=device,
+                                 dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="shared memory"):
         mc.run_wide(torch.zeros(8, 512, device=device, dtype=torch.bfloat16),
                     torch.zeros(1, 512, 512, device=device,

@@ -104,19 +104,25 @@ def _rel(a, b):
     return np.abs(_np(a) - _np(b)).max() / np.abs(_np(b)).max()
 
 
+# the port's variant nearest to the JAX kernel's (tile, interleave): the
+# wgmma kernel takes 64-row warpgroups, interleaved only on 128-row tiles
+PORT_VARIANT = {(64, 1): (64, 1), (64, 2): (128, 2)}
+
+
 @pytest.mark.parametrize("interleave", [1, 2])
 def test_chain_matches_jax_kernel(interpret_pallas, interleave):
     (jx, tx), jws, tws = _chain_inputs(256, 64, jchain.LAYERS)
     ref = jchain.run_chain(jx, jws, tile=64, interleave=interleave)
     calls, launches = mc.chain_reference.calls, mc.run_chain.launches
-    out = mc.run_chain(tx, tws, tile=64, interleave=interleave)
+    tile, k = PORT_VARIANT[(64, interleave)]
+    out = mc.run_chain(tx, tws, tile=tile, interleave=k)
     assert (mc.chain_reference.calls, mc.run_chain.launches) == (
         calls + 1, launches)           # the CPU route is the plain version
     assert out.shape == (256, 64) and out.dtype == torch.bfloat16
     assert _rel(out, ref) <= CHAIN_TOL
     # neither tile nor interleave changes the result
     assert torch.equal(out, mc.run_chain(tx, torch.stack(tws), tile=128,
-                                         interleave=4))
+                                         interleave=1))
 
 
 def test_wide_matches_jax_kernel(interpret_pallas):
@@ -138,7 +144,8 @@ def test_epi_matches_jax_kernel_on_the_script_draw(interpret_pallas,
     ref = jepi.run_epi(jx, jws, *(v[0] for v in vecs), tile=64,
                        interleave=2, fold=fold)
     calls = mc.epi_reference.calls
-    out = mc.run_epi(tx, tws, *(v[1] for v in vecs), tile=64, interleave=2,
+    tile, k = PORT_VARIANT[(64, 2)]
+    out = mc.run_epi(tx, tws, *(v[1] for v in vecs), tile=tile, interleave=k,
                      fold=fold)
     assert mc.epi_reference.calls == calls + 1
     assert np.abs(_np(out) - _np(ref)).max() <= EPI_TOL
@@ -210,6 +217,23 @@ def _bad_inputs():
         ("interleave", lambda: mc.run_chain(x, w, tile=64, interleave=4)),
         ("shared memory", lambda: mc.run_wide(
             wide, [torch.zeros(512, 512, dtype=torch.bfloat16)], tile=128)),
+        # what the wgmma kernel does not take: 32-row tiles, a 4-way
+        # interleave, interleaved 64-row tiles, widths above 256 (run_wide)
+        ("tile", lambda: mc.run_chain(x, w, tile=32)),
+        ("interleave", lambda: mc.run_chain(x, w, tile=128, interleave=4)),
+        ("interleave", lambda: mc.run_epi(x, w, v, v, v, tile=64,
+                                          interleave=2)),
+        ("run_wide", lambda: mc.run_chain(
+            wide, [torch.zeros(512, 512, dtype=torch.bfloat16)])),
+        ("run_wide", lambda: mc.run_epi(
+            wide, [torch.zeros(512, 512, dtype=torch.bfloat16)],
+            *(torch.zeros(1, 512),) * 3)),
+        ("weight stages", lambda: mc.run_epi(
+            torch.zeros(8, 256, dtype=torch.bfloat16),
+            torch.zeros(40, 256, 256, dtype=torch.bfloat16),
+            *(torch.zeros(40, 256),) * 3)),
+        ("tile", lambda: mc.run_wide(wide, [torch.zeros(
+            512, 512, dtype=torch.bfloat16)], tile=256)),
         ("bs must", lambda: mc.run_epi(x, w, v.double(), v, v)),
         ("p must", lambda: mc.run_epi(x, w, v, v, torch.zeros(2, 64))),
     ]
@@ -223,10 +247,24 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(case):
 
 
 def test_chain_shared_memory_fits_every_probe_variant():
-    """The probe scripts' tiles fit a CTA's 227 KB; the 128-row tile at width
-    512 does not (wide runs at 32 and 64 rows)."""
-    for tile, k in ((32, 1), (64, 1), (128, 1), (64, 2), (128, 2), (128, 4)):
-        assert mc.chain_smem(tile, k, 256) <= mc.MAX_SMEM
+    """Both kernels' layouts. The wgmma chain (run_chain, run_epi): the
+    probes' 11 layers at width 256 fit a CTA's 227 KB with eight weight
+    stages and both 64-row x tiles, for every epilogue (with the FiLM
+    vectors, exactly). The wmma chain
+    (run_wide): 32- and 64-row tiles at width 512; the 128-row tile does
+    not fit there."""
+    for epi in ("none", "film", "fold"):
+        assert mc.chain_stages(256, 11, epi) == mc.MAX_STAGES
+        assert mc.chain_smem(256, 11, epi) <= mc.MAX_SMEM
+        for h in (64, 128, 192):
+            assert mc.chain_smem(h, 11, epi) <= mc.chain_smem(256, 11, epi)
+    assert mc.chain_smem(256, 11, "film") == mc.MAX_SMEM
+    # more layers' FiLM vectors crowd the ring out; the wrapper raises
+    # before the kernel would
+    layers = next(n for n in range(12, 100)
+                  if mc.chain_stages(256, n, "film") < mc.MIN_STAGES)
+    assert mc.chain_smem(256, layers - 1, "film") <= mc.MAX_SMEM
     for tile in (32, 64):
-        assert mc.chain_smem(tile, 1, 512) <= mc.MAX_SMEM
-    assert mc.chain_smem(128, 1, 512) > mc.MAX_SMEM
+        assert mc.wide_smem(tile, 512) <= mc.MAX_SMEM
+    assert mc.wide_smem(128, 512) > mc.MAX_SMEM
+    assert mc.wide_smem(128, 256) <= mc.MAX_SMEM
