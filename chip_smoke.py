@@ -20,9 +20,10 @@ Phases (any failure exits non-zero):
      field, chain and gather library the registers and spills of each
      kernel and its count of HGMMA (wgmma) and HMMA (mma.sync / wmma)
      instructions in the SASS (cuobjdump), failing if film_mlp's kernel,
-     film_mlp_bwd's row or dW kernel or mxu_chain's chain kernel issues no
-     HGMMA or any HMMA, if mxu_wide's kernel issues no HMMA, or if ptxas
-     notes (C7520 / C7512) say it serialized a wgmma library's products;
+     film_mlp_bwd's row or dW kernel, mxu_chain's chain kernel or
+     mxu_wide's wide kernel issues no HGMMA or any HMMA, if the gather's
+     overlap kernel (the one left on wmma) issues no HMMA, or if ptxas
+     notes (C7520 / C7512) say it serialized a library's wgmma products;
      and the gather kernel's bulk copies (UBLKCP), failing without them or
      with any per-thread cp.async piece (LDGSTS);
   2. the forward kernel against its plain torch version at the serving
@@ -72,7 +73,8 @@ Phases (any failure exits non-zero):
  10. the ceiling probes: the three probe scripts at their full shapes (3 timed
      calls per variant; every probe kernel launched, no plain version
      called), then each probe kernel against its plain version at those
-     shapes (the chains at 11 layers and width 512; the FiLM epilogue at
+     shapes (the chains at 11 layers and width 256 and, wide_t64 and
+     wide_t128, at 5 layers and width 512; the FiLM epilogue at
      the field's weight scale over 11 layers and on the script's draw over
      1, plain and folded; every variant of a chain bitwise equal to the
      others; the gather bit-exact with 2 KB and 512 B rows at the probe
@@ -92,6 +94,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -154,26 +157,29 @@ def phase_card():
 # (HMMA), by library
 HOPPER_KERNELS = {"film_mlp": ("film_mlp_kernel",),
                   "film_mlp_bwd": ("bwd_rows_kernel", "dw_kernel"),
-                  "mxu_chain": ("chain_kernel",)}
-# the kernels still on wmma (HMMA), by library
-WMMA_KERNELS = {"mxu_wide": ("wide_kernel",)}
+                  "mxu_chain": ("chain_kernel",),
+                  "mxu_wide": ("wide_kernel",)}
+# the kernels still on wmma (HMMA), by library: the gather's overlapped
+# chain (chain.cuh)
+WMMA_KERNELS = {"dma_gather": ("gather_overlap_kernel",)}
 # the kernels that must move their rows by bulk copies (SASS UBLKCP, the
 # 1-D cp.async.bulk) and by no per-thread cp.async piece (LDGSTS), by library
 BULK_KERNELS = {"dma_gather": ("gather_kernel",)}
-SASS_OPS = ("HGMMA", "HMMA", "UBLKCP", "LDGSTS")
+# (UTMALDG / UTMASTG: the 2-D tensor copies, printed only)
+SASS_OPS = ("HGMMA", "HMMA", "UBLKCP", "LDGSTS", "UTMALDG", "UTMASTG")
 
 
 def phase_sass(build):
-    """Registers, spills and the HGMMA / HMMA / UBLKCP / LDGSTS instruction
-    counts of every kernel of the field, chain and gather libraries
-    (cuobjdump); fails if a kernel of HOPPER_KERNELS issues no HGMMA or any
-    HMMA, one of WMMA_KERNELS no HMMA, or one of BULK_KERNELS no UBLKCP or
-    any LDGSTS."""
-    import re
+    """Registers, spills and the HGMMA / HMMA / UBLKCP / LDGSTS / UTMALDG /
+    UTMASTG instruction counts of every kernel of the field, chain and
+    gather libraries (cuobjdump); fails if a kernel of HOPPER_KERNELS issues
+    no HGMMA or any HMMA, one of WMMA_KERNELS no HMMA, or one of
+    BULK_KERNELS no UBLKCP or any LDGSTS."""
     import subprocess
 
     cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
-    for lib in (*HOPPER_KERNELS, *WMMA_KERNELS, *BULK_KERNELS):
+    for lib in dict.fromkeys((*HOPPER_KERNELS, *WMMA_KERNELS,
+                              *BULK_KERNELS)):
         so = str(build._so_path(lib))
         usage = subprocess.run([cuobjdump, "--dump-resource-usage", so],
                                capture_output=True, text=True,
@@ -1182,7 +1188,7 @@ def phase_probe_scripts() -> tuple[dict, dict]:
 
 def _chain_variant(name: str) -> dict:
     """tile / interleave of a probe script's variant name (chain_t64, ilv2_t128,
-    epi_ilv2_t128, wide_t32)."""
+    epi_ilv2_t128, wide_t128)."""
     tile = int(name.rsplit("_t", 1)[1])
     k = int(name.split("ilv")[1].split("_")[0]) if "ilv" in name else 1
     return {"tile": tile, "interleave": k}
@@ -1433,28 +1439,35 @@ def main() -> int:
                 "launches_train": by_path["train"]}
 
     src = "fenerf_tpu_torch/ops/csrc/"
+
+    def headers(source):
+        """The csrc headers a kernel's source builds on (hopper.cuh, ...)."""
+        text = (Path(__file__).resolve().parent / src / source).read_text()
+        return {"headers": re.findall(r'^#include "(\S+\.cuh)"', text,
+                                      re.M)}
+
     print(json.dumps({"kernels": [
         {"name": "film_mlp", "route": "cuda", "source": src + "film_mlp.cu",
          "replaces": "fenerf_tpu/ops/film_mlp.py:128",
-         **launches("film_mlp"), **kern},
+         **headers("film_mlp.cu"), **launches("film_mlp"), **kern},
         {"name": "film_mlp_bwd", "route": "cuda",
          "source": src + "film_mlp_bwd.cu",
          "replaces": "fenerf_tpu/ops/film_mlp_grad.py:85",
-         **launches("film_mlp_bwd"), **bwd},
+         **headers("film_mlp_bwd.cu"), **launches("film_mlp_bwd"), **bwd},
         {"name": "ray_resample", "route": "cuda",
          "source": src + "ray_finalize.cu",
          "replaces": "fenerf_tpu/ops/ray_finalize.py:97",
-         **launches("ray_resample"), **resample},
+         **headers("ray_finalize.cu"), **launches("ray_resample"), **resample},
         {"name": "ray_finalize", "route": "cuda",
          "source": src + "ray_finalize.cu",
          "replaces": "fenerf_tpu/ops/ray_finalize.py:221",
-         **launches("ray_finalize"), **finalize},
+         **headers("ray_finalize.cu"), **launches("ray_finalize"), **finalize},
         {"name": "fold_zexp", "route": "cuda", "source": src + "zexp_fold.cu",
          "replaces": "fenerf_tpu/ops/zexp_fold.py:46",
-         **launches("fold_zexp"), **fold}] + [
+         **headers("zexp_fold.cu"), **launches("fold_zexp"), **fold}] + [
         {"name": name, "route": "cuda", "source": src + source,
-         "replaces": replaces, "launches": probe_launches[name],
-         **probes[name]}
+         "replaces": replaces, **headers(source),
+         "launches": probe_launches[name], **probes[name]}
         for name, source, replaces in (
             ("run_chain", "mxu_chain.cu", "scripts/profile_mxu_chain.py:50"),
             ("run_wide", "mxu_wide.cu", "scripts/profile_mxu_chain.py:86"),

@@ -1,14 +1,12 @@
 // One warp group's row tile through an L-layer bf16 chain on nvcuda::wmma,
-// for NVIDIA Hopper (sm_90a). Included by mxu_wide.cu (the ceiling probe
-// run_wide) and dma_gather.cu (the gather overlapped with the chain);
-// run_chain and run_epi run on wgmma in mxu_chain.cu.
+// for NVIDIA Hopper (sm_90a). Included by dma_gather.cu (the gather
+// overlapped with the chain) alone; run_chain and run_epi run on wgmma in
+// mxu_chain.cu, run_wide in mxu_wide.cu.
 //
 // Layer i:  a <- bf16(a @ W[i])  with bf16 operands, f32 accumulation and
 // round-to-nearest-even output.
 //
-// Design (simple and right first; at width 512 a wgmma A operand no longer
-// fits in registers and has to come from shared memory, which is later
-// work):
+// Design (simple and right first):
 //   * a group of `warps` warps owns `rows` (a multiple of 32) rows; its
 //     warps form a grid of 32 x 64 warp tiles, rows / 32 high and
 //     warps / (rows / 32) wide, so one pass computes nc = 64 * that width

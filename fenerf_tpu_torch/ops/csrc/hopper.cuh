@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the field kernels film_mlp.cu
-// and film_mlp_bwd.cu, the chain probes mxu_chain.cu and the gather
-// dma_gather.cu: warpgroup matrix
+// and film_mlp_bwd.cu, the chain probes mxu_chain.cu and mxu_wide.cu and
+// the gather dma_gather.cu: warpgroup matrix
 // products (wgmma) with B (and optionally A) read from shared memory
 // through matrix descriptors, mbarriers, the 1-D bulk copy (TMA without a
-// tensor map) both ways with its bulk groups and proxy fence, and register
-// rebalancing between warp roles.
+// tensor map) both ways with its bulk groups and proxy fence, the 2-D
+// tensor copy both ways, and register rebalancing between warp roles.
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor Format" and the wgmma
 // register fragments):
@@ -356,6 +356,29 @@ __device__ __forceinline__ void bulk_wait_all() {
 // copy (the async proxy) that reads them
 __device__ __forceinline__ void fence_proxy_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- the 2-D tensor copy (TMA with a tensor map) --------------------------
+// map: the generic address of a CUtensorMap kernel parameter
+// (__grid_constant__); c0 the inner (column) and c1 the outer (row)
+// coordinate of the box. Out-of-bounds elements load as zeros (and count
+// towards the transaction bytes) and are not stored.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0,
+                                            int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+// tracked by bulk groups (bulk_commit, bulk_wait_read, bulk_wait_all)
+__device__ __forceinline__ void tma_store_2d(const void* map, int c0, int c1,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.tile.bulk_group "
+      "[%0, {%1, %2}], [%3];\n" ::"l"(map),
+      "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
 }
 
 // ---- register rebalancing between warp roles ------------------------------

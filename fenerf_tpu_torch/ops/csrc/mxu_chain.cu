@@ -26,14 +26,13 @@
 //   * one persistent CTA per SM: a producer warpgroup, in which one elected
 //     lane issues bulk copies onto mbarriers, and two consumer warpgroups of
 //     64 rows each;
-//   * weights: pack_kernel (launched by the same entry point, in the same
-//     stream) writes (layers, h, h) into 128-column passes of 64-row K
-//     chunks, each in wgmma's 128-byte-swizzled K-major B layout and
-//     contiguous, so one bulk copy moves one chunk onto a ring of up to
-//     eight 16 KB stages. Widths under 256 are padded to 128 or 256 output
-//     columns with zero weights (the padded columns are never read again
-//     nor stored). For the folded epilogue the pack also forms
-//     bf16(W * bf16(f)) and q = f * b + p;
+//   * weights: chain_pack.cuh's pack_kernel (launched by the same entry
+//     point, in the same stream) writes (layers, h, h) into 128-column
+//     passes of 64-row K chunks, each in wgmma's 128-byte-swizzled K-major
+//     B layout and contiguous, so one bulk copy moves one chunk onto a ring
+//     of up to eight 16 KB stages. Widths under 256 are padded to 128 or
+//     256 output columns with zero weights. For the folded epilogue the
+//     pack also forms bf16(W * bf16(f)) and q = f * b + p;
 //   * products: wgmma m64n128k16 with A from registers. A layer of 256
 //     columns runs as two passes of 128 over the whole K; each pass's
 //     accumulator goes through the epilogue and becomes the next layer's A
@@ -62,6 +61,7 @@
 // chain_reference and epi_reference; pack_chain_weights writes the same
 // bytes as pack_kernel.
 
+#include "chain_pack.cuh"
 #include "hopper.cuh"
 
 #include <stddef.h>
@@ -72,10 +72,12 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
+using chain_pack::KCHUNK;   // K rows per weight chunk
+using chain_pack::PASS;     // output columns per pass
+using chain_pack::pack_kernel;
+
 constexpr int THREADS = 384;         // 2 consumer warpgroups + the producer
 constexpr int WG_ROWS = 64;          // rows per consumer warpgroup
-constexpr int PASS = 128;            // output columns per pass
-constexpr int KCHUNK = 64;           // K rows per weight chunk
 constexpr int STAGE_BYTES = PASS * KCHUNK * 2;
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_SMEM = 232448 - 1024;   // less the alignment slack
@@ -89,6 +91,8 @@ enum { EPI_NONE = 0, EPI_FILM = 1, EPI_FOLD = 2 };
 // 128-row tile and one ring; ILV2: T128 with the consumers one pass apart
 enum { MODE_T64 = 0, MODE_T128 = 1, MODE_ILV2 = 2 };
 
+// chain_pack::padded(h) at the widths this kernel covers (up to 256): one
+// or two passes, which the compiler then knows
 __host__ __device__ inline int padded(int h) { return h <= PASS ? PASS : 2 * PASS; }
 __host__ __device__ inline int n_vec(int epi) {
   return epi == EPI_FILM ? 3 : epi == EPI_FOLD ? 1 : 0;
@@ -111,56 +115,6 @@ __host__ __device__ inline Layout make_layout(int h, int layers, int epi) {
   L.off_epi = L.off_x + x_bytes;
   L.total = L.off_epi + epi_bytes;
   return L;
-}
-
-// (layers, h, h) row-major -> per layer, per 128-column pass, per 64-row K
-// chunk: 128 rows (one per output column n) of 64 K values, the 16-byte
-// group q of row r holding K values 8 * (q ^ (r % 8)) .. + 8 of the chunk.
-// One thread per 16-byte group, consecutive threads on consecutive n.
-__global__ void pack_kernel(const bf16* __restrict__ w,
-                            const float* __restrict__ b,
-                            const float* __restrict__ f,
-                            const float* __restrict__ p, int h, int layers,
-                            int fold, bf16* __restrict__ wdev,
-                            float* __restrict__ q) {
-  const int hd = padded(h), kch = h / KCHUNK, passes = hd / PASS;
-  const size_t groups = (size_t)layers * hd * h / 8;
-  const size_t step = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < groups;
-       i += step) {
-    const int r = (int)(i % PASS);
-    const int qg = (int)(i / PASS % 8);
-    const size_t chunk = i / (PASS * 8);
-    const int c = (int)(chunk % kch);
-    const size_t lp = chunk / kch;
-    const int pass = (int)(lp % passes);
-    const int l = (int)(lp / passes);
-    const int n = pass * PASS + r;
-    const int k0 = c * KCHUNK + 8 * (qg ^ (r & 7));
-    __align__(16) bf16 v[8];
-    if (n < h) {
-      const bf16* src = w + ((size_t)l * h + k0) * h + n;
-      const float fb = fold ? __bfloat162float(__float2bfloat16_rn(
-                                  f[(size_t)l * h + n]))
-                            : 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const bf16 x = src[(size_t)e * h];
-        v[e] = fold ? __float2bfloat16_rn(__fmul_rn(__bfloat162float(x), fb))
-                    : x;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16_rn(0.f);
-    }
-    *reinterpret_cast<int4*>(wdev + chunk * PASS * KCHUNK + r * KCHUNK + 8 * qg) =
-        *reinterpret_cast<const int4*>(v);
-  }
-  if (fold) {
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-         i < (size_t)layers * h; i += step)
-      q[i] = __fadd_rn(__fmul_rn(f[i], b[i]), p[i]);
-  }
 }
 
 struct Pipe {

@@ -118,7 +118,9 @@ def _check(table, idx, ring, ws, x, overlap):
             raise ValueError(f"ring_dma_gather: x must have one row per "
                              f"index ({idx.shape[0]}) on {table.device}; got "
                              f"{tuple(x.shape)} on {x.device}")
-        w = mxu_chain._check_wide("ring_dma_gather", x, ws, _CHAIN_ROWS)
+        # the chain's shared memory is part of the ring's check below
+        mxu_chain._check_x("ring_dma_gather", x, mxu_chain.MAX_WIDE_WIDTH)
+        w = mxu_chain._stack(ws, x.shape[1], x.device, "ring_dma_gather")
     h = x.shape[1] if overlap else 256
     if ring not in rings(row_bytes, overlap, h):
         raise ValueError(f"ring_dma_gather: ring {ring} not covered for "

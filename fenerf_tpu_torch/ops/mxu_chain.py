@@ -2,7 +2,8 @@
 ops/csrc/mxu_chain.cu (ports of the Pallas kernels
 scripts/profile_mxu_chain.py::run_chain and
 scripts/profile_epilogue_overlap.py::run_epi, on wgmma) and
-ops/csrc/mxu_wide.cu (scripts/profile_mxu_chain.py::run_wide, on wmma).
+ops/csrc/mxu_wide.cu (scripts/profile_mxu_chain.py::run_wide, on wgmma
+with A from shared memory).
 
   run_chain / run_wide   a <- bf16(a @ W[i]) for every layer: the fused
                          field's chain of products alone (run_wide is the
@@ -17,12 +18,14 @@ that are a multiple of 64 up to 256 and (tile, interleave) in VARIANTS:
 (64, 1) a consumer warpgroup per 64-row tile and weight stage, (128, 1)
 both consumers on one 128-row tile and every weight stage, (128, 2) the
 same with the two consumers one pass apart (the TPU kernel's k-way row
-interleave). run_wide takes widths up to 512 and tiles of 32, 64 or 128
-rows. Neither tile nor interleave changes the result.
+interleave). run_wide takes widths that are a multiple of 64 up to 512 and
+tiles in WIDE_TILES (the same two schedules as (64, 1) and (128, 1)).
+Neither tile nor interleave changes the result.
 
-The wgmma kernel reads the weights in a device layout written by its own
-pack kernel in the same call; `pack_chain_weights` is the plain torch
-version of that pack (the same bytes).
+Both kernels read the weights in one device layout (ops/csrc/
+chain_pack.cuh), written by their pack kernel in the same call;
+`pack_chain_weights` is the plain torch version of that pack (the same
+bytes).
 
 Dispatch: a wrapper checks its inputs, runs its plain version
 (`chain_reference`, `epi_reference`) for CPU tensors and the CUDA kernel
@@ -41,14 +44,16 @@ from fenerf_tpu_torch.ops.fast_math import fast_sin
 
 VARIANTS = ((64, 1), (128, 1), (128, 2))   # (tile, interleave) of run_chain
 MAX_WIDTH = 256
-WIDE_TILES = (32, 64, 128)
+WIDE_TILES = (64, 128)
 MAX_WIDE_WIDTH = 512
 MAX_SMEM = 232_448      # a CTA's dynamic shared memory on an H100
 _EPI = {"none": 0, "film": 1, "fold": 2}
-# ops/csrc/mxu_chain.cu
+# ops/csrc/chain_pack.cuh and mxu_chain.cu
 PASS, KCHUNK, MAX_STAGES, MIN_STAGES = 128, 64, 8, 6
-# ops/csrc/chain.cuh (mxu_wide.cu, and dma_gather.cu's overlap)
-_KC, _WM, _WN, _WARPS = 32, 32, 64, 8
+# ops/csrc/mxu_wide.cu: two weight stages per ring at tile 64
+WIDE_MIN_STAGES = 4
+# ops/csrc/chain.cuh (dma_gather.cu's overlap)
+_KC, _WM, _WN = 32, 32, 64
 
 
 def _align(x: int, a: int) -> int:
@@ -56,9 +61,9 @@ def _align(x: int, a: int) -> int:
 
 
 def padded_width(h: int) -> int:
-    """The output columns the wgmma kernel computes per layer: 128 or 256
-    (two passes of PASS); the padded columns have zero weights."""
-    return PASS if h <= PASS else 2 * PASS
+    """The output columns the wgmma kernels compute per layer: h rounded up
+    to whole passes of PASS; the padded columns have zero weights."""
+    return _align(h, PASS)
 
 
 def _chain_layout(h: int, layers: int, epi: str) -> tuple[int, int]:
@@ -99,9 +104,25 @@ def group_smem(rows: int, h: int, warps: int) -> int:
     return _align(off + warps * 256 * 4, 128)
 
 
-def wide_smem(tile: int, h: int) -> int:
+def _wide_layout(h: int) -> tuple[int, int]:
+    """(stages, dynamic shared memory with the 1024-byte alignment slack)
+    of ops/csrc/mxu_wide.cu::make_layout: barriers, weight stages of
+    PASS x KCHUNK bf16, the two consumers' 64-row A tiles. The layout is
+    the same at both tiles; tile 64 splits the stages into two rings."""
+    a_bytes = 2 * 64 * h * 2
+    stages = min(MAX_STAGES, (MAX_SMEM - 2048 - a_bytes)
+                 // (PASS * KCHUNK * 2))
+    return stages, 1024 + stages * PASS * KCHUNK * 2 + a_bytes + 1024
+
+
+def wide_stages(h: int) -> int:
+    """run_wide's weight stages (mxu_wide.cu::mxu_wide_stages)."""
+    return _wide_layout(h)[0]
+
+
+def wide_smem(h: int) -> int:
     """A run_wide CTA's shared memory (mxu_wide.cu::mxu_wide_smem)."""
-    return group_smem(tile, h, _WARPS)
+    return _wide_layout(h)[1]
 
 
 def _stack(ws, h: int, device, name: str) -> torch.Tensor:
@@ -150,19 +171,17 @@ def _check(name: str, x: torch.Tensor, ws, tile: int, interleave: int,
     return w
 
 
-def _check_wide(name: str, x: torch.Tensor, ws, tile: int) -> torch.Tensor:
-    """Raise on what the wmma kernel (run_wide, the gather's overlap) does
-    not take; return the stacked weights."""
-    _check_x(name, x, MAX_WIDE_WIDTH)
-    h = x.shape[1]
+def _check_wide(x: torch.Tensor, ws, tile: int) -> torch.Tensor:
+    """Raise on what run_wide's kernel does not take; return the stacked
+    weights."""
+    _check_x("run_wide", x, MAX_WIDE_WIDTH)
     if tile not in WIDE_TILES:
-        raise ValueError(f"{name}: tile {tile} not covered (one of "
-                         f"{WIDE_TILES})")
-    if wide_smem(tile, h) > MAX_SMEM:
-        raise ValueError(f"{name}: tile {tile} at width {h} needs "
-                         f"{wide_smem(tile, h)} bytes of shared memory (at "
-                         f"most {MAX_SMEM})")
-    return _stack(ws, h, x.device, name)
+        raise ValueError(f"run_wide: tile {tile} not covered (one of "
+                         f"{WIDE_TILES}: wgmma has no row group under 64)")
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        raise ValueError("run_wide: x must start on a 16-byte boundary "
+                         "(its tiles come in by 2-D tensor copies)")
+    return _stack(ws, x.shape[1], x.device, "run_wide")
 
 
 def _check_film(x: torch.Tensor, layers: int, **vecs) -> None:
@@ -217,15 +236,15 @@ epi_reference.calls = 0
 def pack_chain_weights(w: torch.Tensor, b: torch.Tensor | None = None,
                        f: torch.Tensor | None = None,
                        p: torch.Tensor | None = None, fold: bool = False):
-    """The plain torch version of mxu_chain.cu's pack kernel: (wdev, q).
+    """The plain torch version of chain_pack.cuh's pack kernel: (wdev, q).
 
     wdev, flat bf16: for every layer, every PASS-column pass of the padded
-    width and every 64-row K chunk, PASS rows (one per output column n) of
-    64 K values, the 16-byte group q of row r holding K values
-    8 * (q ^ (r % 8)) .. + 8 of the chunk (wgmma's 128-byte-swizzled
-    K-major B operand); columns past h hold zeros. With fold the weights
-    are bf16(W * bf16(f)) per output column and q = f * b + p, else q is
-    None."""
+    width (h rounded up to a multiple of PASS) and every 64-row K chunk,
+    PASS rows (one per output column n) of 64 K values, the 16-byte group
+    q of row r holding K values 8 * (q ^ (r % 8)) .. + 8 of the chunk
+    (wgmma's 128-byte-swizzled K-major B operand); columns past h hold
+    zeros. With fold the weights are bf16(W * bf16(f)) per output column
+    and q = f * b + p, else q is None."""
     layers, h, _ = w.shape
     hd = padded_width(h)
     q = None
@@ -262,10 +281,13 @@ def _load_library(name: str = "mxu_chain"):
                 fn.argtypes = [ci] * 3
                 fn.restype = ci
         else:
-            lib.mxu_wide_forward.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+            lib.mxu_wide_forward.argtypes = [vp] * 4 + [ci] * 4 + [vp]
             lib.mxu_wide_forward.restype = ci
-            lib.mxu_wide_smem.argtypes = [ci] * 2
-            lib.mxu_wide_smem.restype = ci
+            lib.mxu_wide_pack.argtypes = [vp] * 2 + [ci] * 2 + [vp]
+            lib.mxu_wide_pack.restype = ci
+            for fn in (lib.mxu_wide_smem, lib.mxu_wide_stages):
+                fn.argtypes = [ci]
+                fn.restype = ci
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ci]
         err.restype = ctypes.c_char_p
@@ -299,12 +321,22 @@ def _scratch(w: torch.Tensor, fold: bool):
 def pack_on_device(w: torch.Tensor, b=None, f=None, p=None,
                    fold: bool = False):
     """The pack kernel alone on CUDA tensors: (wdev, q), the bytes
-    pack_chain_weights writes."""
+    pack_chain_weights writes; mxu_chain's up to width 256, mxu_wide's
+    (no fold) above."""
+    layers, h, _ = w.shape
     wdev, q = _scratch(w, fold)
-    lib = _load_library()
-    _raise(lib, "mxu_chain", "mxu_chain_pack", lib.mxu_chain_pack(
-        w.data_ptr(), _ptr(b), _ptr(f), _ptr(p), wdev.data_ptr(), _ptr(q),
-        w.shape[1], w.shape[0], int(fold), _stream(w)))
+    if h <= MAX_WIDTH:
+        lib = _load_library()
+        _raise(lib, "mxu_chain", "mxu_chain_pack", lib.mxu_chain_pack(
+            w.data_ptr(), _ptr(b), _ptr(f), _ptr(p), wdev.data_ptr(),
+            _ptr(q), h, layers, int(fold), _stream(w)))
+    elif fold:
+        raise ValueError(f"pack_on_device: no folded pack at width {h} "
+                         f"(run_epi takes up to {MAX_WIDTH})")
+    else:
+        lib = _load_library("mxu_wide")
+        _raise(lib, "mxu_wide", "mxu_wide_pack", lib.mxu_wide_pack(
+            w.data_ptr(), wdev.data_ptr(), h, layers, _stream(w)))
     return wdev, q
 
 
@@ -342,18 +374,20 @@ def run_chain(x: torch.Tensor, ws, tile: int = 64,
 run_chain.launches = 0
 
 
-def run_wide(x: torch.Tensor, ws, tile: int = 64) -> torch.Tensor:
-    """The same chain as run_chain on the wmma kernel, at widths up to 512
-    (the probe scripts run it at width 512, 5 layers: the FLOPs per point
-    of the 11-layer chain at 256)."""
-    w = _check_wide("run_wide", x, ws, tile)
+def run_wide(x: torch.Tensor, ws, tile: int = 128) -> torch.Tensor:
+    """The same chain as run_chain at widths up to 512, on mxu_wide.cu's
+    wgmma kernel with A from shared memory (the probe scripts run it at
+    width 512, 5 layers: the FLOPs per point of the 11-layer chain at
+    256)."""
+    w = _check_wide(x, ws, tile)
     if not _device("run_wide", x):
         return chain_reference(x, w)
     out = torch.empty_like(x)
+    wdev, _ = _scratch(w, False)
     lib = _load_library("mxu_wide")
     _raise(lib, "mxu_wide", "run_wide", lib.mxu_wide_forward(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-        w.shape[0], tile, _stream(x)))
+        x.data_ptr(), w.data_ptr(), wdev.data_ptr(), out.data_ptr(),
+        x.shape[0], x.shape[1], w.shape[0], tile, _stream(x)))
     run_wide.launches += 1
     return out
 

@@ -82,6 +82,12 @@ def chain_variant(tile: int, interleave: int) -> str:
             else f"ilv{interleave}_t{tile}")
 
 
+def wide_variant(tile: int) -> str:
+    """A run_wide variant's name in the probe scripts: wide_t64,
+    wide_t128."""
+    return f"wide_t{tile}"
+
+
 def gather_bytes(n: int, row_bytes: int) -> int:
     """Each index read, its row read and written."""
     return n * (2 * row_bytes + 4)

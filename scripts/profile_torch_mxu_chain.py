@@ -4,16 +4,18 @@ counterpart of scripts/profile_mxu_chain.py.
   python scripts/profile_torch_mxu_chain.py [--iters 10]
       [--out chiprun_out/profile_torch_mxu_chain.json]
 
-Variants, through the hand-written CUDA kernels ops/csrc/mxu_chain.cu
-(wgmma) and ops/csrc/mxu_wide.cu (wmma):
+Variants, through the hand-written CUDA kernels ops/csrc/mxu_chain.cu and
+ops/csrc/mxu_wide.cu (both wgmma):
   chain_t64      the 11-layer bf16 chain a <- bf16(a @ W) over (2^20, 256),
                  each consumer warpgroup on its own 64-row tiles
   chain_t128     the same, both consumers on one 128-row tile, every weight
                  stage feeding both (half the L2 weight stream)
   ilv2_t128      chain_t128 with the two consumers one pass apart (the TPU
                  kernel's k-way row interleave, k = 2)
-  wide_t{T}      5 layers at width 512 over (2^19, 512), T-row CTAs: the
-                 same FLOPs per point, wider products
+  wide_t64       5 layers at width 512 over (2^19, 512): the same FLOPs
+                 per point, wider products; each consumer warpgroup on its
+                 own 64-row tiles, A from shared memory
+  wide_t128      the same, both consumers on one 128-row tile
 Context, not a kernel of the port: torch_matmul_chain / torch_matmul_wide,
 the same number of torch.matmul bf16 calls in a row (bf16 reductions in
 f32), which round to bf16 between layers only because their outputs are
@@ -69,8 +71,9 @@ def main(argv=None) -> int:
     x, w = probes.chain_inputs(gen, probes.WIDE_N, probes.WIDE_H,
                                probes.WIDE_LAYERS, dev)
     shape = (probes.WIDE_N, probes.WIDE_H, probes.WIDE_LAYERS)
-    for tile in (32, 64):
-        run(f"wide_t{tile}", lambda: mxu_chain.run_wide(x, w, tile), *shape)
+    for tile in mxu_chain.WIDE_TILES:
+        run(probes.wide_variant(tile),
+            lambda: mxu_chain.run_wide(x, w, tile), *shape)
     run("torch_matmul_wide", lambda: matmuls(x, w), *shape)
     probes.write_json(args.out, {"card": card,
                                  "iters": args.iters, "variants": res})

@@ -1,9 +1,10 @@
-"""The wgmma chain's weight layout (fenerf_tpu_torch/ops/mxu_chain.py::
-pack_chain_weights, the plain version of ops/csrc/mxu_chain.cu's pack
-kernel), checked on the CPU without the card: the swizzled chunks that the
-kernel copies with one bulk copy each give back W, and with fold
-bf16(W * bf16(f)) and f * b + p, bit for bit, at every width the kernel
-takes.
+"""The wgmma chains' weight layout (fenerf_tpu_torch/ops/mxu_chain.py::
+pack_chain_weights, the plain version of ops/csrc/chain_pack.cuh's pack
+kernel, which mxu_chain.cu and mxu_wide.cu launch), checked on the CPU
+without the card: the swizzled chunks that the kernels copy with one bulk
+copy each give back W, and with fold bf16(W * bf16(f)) and f * b + p, bit
+for bit, at every width the kernels take; and run_wide's shared-memory
+layout (mxu_wide.cu::make_layout, mirrored by wide_smem / wide_stages).
 
 The un-swizzle here is written from the wgmma layout (128-byte rows of 64
 K values, 16-byte group q of row r at position q ^ (r % 8)), not from the
@@ -21,10 +22,10 @@ LAYERS = 2
 
 def _unswizzle(wdev: np.ndarray, layers: int, h: int) -> np.ndarray:
     """(layers, K = h, N = h) from the device layout: per layer, passes of
-    128 output columns over the width padded to 128 or 256, each cut into
-    64-row K chunks of 128 rows (one per output column) of 64 K values;
-    assert that the padded columns hold zeros."""
-    hd = 128 if h <= 128 else 256
+    128 output columns over the width padded to a multiple of 128, each cut
+    into 64-row K chunks of 128 rows (one per output column) of 64 K
+    values; assert that the padded columns hold zeros."""
+    hd = -(-h // 128) * 128
     kch = h // 64
     chunks = wdev.reshape(layers, hd // 128, kch, 128, 64)
     out = np.zeros((layers, h, hd), dtype=wdev.dtype)
@@ -51,7 +52,7 @@ def _bits(t: torch.Tensor) -> np.ndarray:
 
 
 @pytest.mark.parametrize("fold", [False, True])
-@pytest.mark.parametrize("h", [64, 128, 192, 256])
+@pytest.mark.parametrize("h", [64, 128, 192, 256, 320, 384, 448, 512])
 def test_chain_device_layout_unswizzles_to_the_weights(h, fold):
     w, b, f, p = _inputs(h, seed=h + fold)
     wdev, q = mc.pack_chain_weights(w, b, f, p, fold=fold)
@@ -69,3 +70,19 @@ def test_chain_device_layout_unswizzles_to_the_weights(h, fold):
     np.testing.assert_array_equal(_unswizzle(_bits(wdev), LAYERS, h),
                                   _bits(want))
 
+
+
+@pytest.mark.parametrize("tile", mc.WIDE_TILES)
+@pytest.mark.parametrize("h", [64, 128, 192, 256, 320, 384, 448, 512])
+def test_wide_layout_fits_a_cta(h, tile):
+    """run_wide's CTA: mbarriers (1 KB), weight stages of 16 KB and the two
+    consumers' 64-row A tiles of h bf16 columns, with 1 KB of alignment
+    slack, within a CTA's 227 KB; the stages as many as fit, at most 8, and
+    at tile 64 (two rings) still two per ring."""
+    stages = mc.wide_stages(h)
+    a_tiles = 2 * 64 * h * 2
+    assert mc.wide_smem(h) == 1024 + stages * 16384 + a_tiles + 1024
+    assert mc.wide_smem(h) <= mc.MAX_SMEM
+    assert stages == mc.MAX_STAGES or mc.wide_smem(h) + 16384 > mc.MAX_SMEM
+    rings = 2 if tile == 64 else 1
+    assert stages // rings >= 2 and stages >= mc.WIDE_MIN_STAGES

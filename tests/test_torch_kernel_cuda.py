@@ -314,15 +314,20 @@ CHAIN_TOL = 2e-2
 
 @pytest.mark.parametrize("n,h,layers,tile,k", [
     (1000, 256, 11, 64, 1), (1001, 256, 11, 128, 2), (77, 64, 3, 64, 1),
-    (130, 512, 5, 64, 1), (300, 512, 5, 32, 1), (65, 192, 2, 128, 2),
+    (130, 512, 5, 64, 1), (300, 512, 5, 128, 1), (65, 192, 2, 128, 2),
     # fewer rows than a warpgroup; a second consumer with no rows at all;
     # width 128 in one pass; one layer over many tiles, where the next x
     # tile's copy is issued as soon as a buffer is released
     (37, 256, 11, 128, 1), (100, 256, 3, 128, 2), (300, 128, 4, 128, 1),
-    (1 << 18, 256, 1, 128, 1)])
+    (1 << 18, 256, 1, 128, 1),
+    # run_wide: one warpgroup's rows; fewer; one layer over many tiles,
+    # where a consumer refills its A tile right after its last products;
+    # widths whose last pass is half padding
+    (64, 512, 5, 128, 1), (37, 512, 5, 128, 1), (1 << 18, 512, 1, 128, 1),
+    (300, 320, 3, 64, 1), (200, 448, 2, 128, 1)])
 def test_chain_kernel_matches_plain(device, n, h, layers, tile, k):
-    """Widths up to 256 on run_chain's wgmma kernel, 512 on run_wide's
-    wmma kernel."""
+    """Widths up to 256 on run_chain's wgmma kernel, above on run_wide's
+    (A from shared memory)."""
     from fenerf_tpu_torch.ops import mxu_chain as mc
     from fenerf_tpu_torch.ops import probes
 
@@ -340,8 +345,8 @@ def test_chain_kernel_matches_plain(device, n, h, layers, tile, k):
     assert err.item() <= CHAIN_TOL, err.item()
     # tiles and interleaves change the schedule, not a row's sums
     if fn is mc.run_wide:
-        assert torch.equal(got, mc.run_wide(x, list(w), 64))
-        assert torch.equal(got, mc.run_wide(x, w, 32))
+        for tile2 in mc.WIDE_TILES:
+            assert torch.equal(got, mc.run_wide(x, list(w), tile2))
     else:
         for tile2, k2 in mc.VARIANTS:
             assert torch.equal(got, mc.run_chain(x, list(w), tile2, k2))
@@ -391,6 +396,21 @@ def test_chain_pack_kernel_writes_the_plain_layout(device, h, fold):
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     if fold:
         assert torch.equal(q, q_want)
+
+
+@pytest.mark.parametrize("h", [320, 512])
+def test_wide_pack_kernel_writes_the_plain_layout(device, h):
+    """mxu_wide.cu's pack kernel (chain_pack.cuh, as mxu_chain.cu's) writes
+    pack_chain_weights' bytes above width 256 too."""
+    from fenerf_tpu_torch.ops import mxu_chain as mc
+    from fenerf_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    _, w = probes.chain_inputs(gen, 1, h, 5, device)
+    got, _ = mc.pack_on_device(w)
+    want, _ = mc.pack_chain_weights(w)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("row_shape", [(8, 128), (256,), (24,), (8,)])
@@ -468,8 +488,10 @@ def test_gather_overlap_kernel_matches_plain(device, n, ring):
     assert torch.equal(rows, dg.gather_reference(table, idx))
     err = (act.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert err.item() <= CHAIN_TOL, err.item()
-    # the same 64-row wmma chain as run_wide's (chain.cuh::run_tile)
-    assert torch.equal(act, mc.run_wide(x, w, 64))
+    # the overlap's wmma chain (chain.cuh::run_tile) is the same from run
+    # to run
+    assert torch.equal(act, dg.ring_dma_gather(table, idx, ring, ws=w, x=x,
+                                               overlap=True)[1])
     rows0, act0 = dg.ring_dma_gather(table, idx, ring, ws=list(w),
                                      overlap=True)
     assert torch.equal(rows0, rows) and not act0.any()
@@ -477,8 +499,8 @@ def test_gather_overlap_kernel_matches_plain(device, n, ring):
 
 def test_probe_layouts_mirror_the_kernels(device):
     """The wrappers' shared-memory and ring arithmetic equals the
-    libraries' own: the wgmma chain's stages and shared memory, the wmma
-    chain's, the gather's rings."""
+    libraries' own: the chain's and the wide chain's stages and shared
+    memory, the gather's rings."""
     from fenerf_tpu_torch.ops import dma_gather as dg
     from fenerf_tpu_torch.ops import mxu_chain as mc
 
@@ -493,9 +515,9 @@ def test_probe_layouts_mirror_the_kernels(device):
                 assert lib.mxu_chain_smem(h, layers, code) == \
                     mc.chain_smem(h, layers, epi)
     wlib = mc._load_library("mxu_wide")
-    for tile in mc.WIDE_TILES:
-        for h in (64, 256, 512):
-            assert wlib.mxu_wide_smem(tile, h) == mc.wide_smem(tile, h)
+    for h in range(64, 513, 64):
+        assert wlib.mxu_wide_smem(h) == mc.wide_smem(h)
+        assert wlib.mxu_wide_stages(h) == mc.wide_stages(h)
     glib = dg._load_library()
     for row_bytes in (48, 512, 2048, 8192):
         for overlap in (0, 1):
@@ -522,10 +544,13 @@ def test_probe_wrappers_reject_bad_input(device):
         mc.run_chain(torch.zeros(8, 512, device=device, dtype=torch.bfloat16),
                      torch.zeros(1, 512, 512, device=device,
                                  dtype=torch.bfloat16))
-    with pytest.raises(ValueError, match="shared memory"):
+    w512 = torch.zeros(1, 512, 512, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="tile"):
         mc.run_wide(torch.zeros(8, 512, device=device, dtype=torch.bfloat16),
-                    torch.zeros(1, 512, 512, device=device,
-                                dtype=torch.bfloat16), 128)
+                    w512, 32)
+    flat = torch.zeros(8 * 512 + 1, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        mc.run_wide(flat[1:].view(8, 512), w512)
     table = torch.zeros(10, 8, 128, device=device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="idx"):
         dg.ring_dma_gather(table, torch.zeros(4, dtype=torch.int32))

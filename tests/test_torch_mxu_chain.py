@@ -215,10 +215,11 @@ def _bad_inputs():
                                                          dtype=torch.bfloat16)])),
         ("tile", lambda: mc.run_chain(x, w, tile=256)),
         ("interleave", lambda: mc.run_chain(x, w, tile=64, interleave=4)),
-        ("shared memory", lambda: mc.run_wide(
-            wide, [torch.zeros(512, 512, dtype=torch.bfloat16)], tile=128)),
-        # what the wgmma kernel does not take: 32-row tiles, a 4-way
-        # interleave, interleaved 64-row tiles, widths above 256 (run_wide)
+        ("tile", lambda: mc.run_wide(
+            wide, [torch.zeros(512, 512, dtype=torch.bfloat16)], tile=32)),
+        # what the wgmma kernels do not take: 32-row tiles (run_wide's
+        # too, above), a 4-way interleave, interleaved 64-row tiles, widths
+        # above 256 (run_wide)
         ("tile", lambda: mc.run_chain(x, w, tile=32)),
         ("interleave", lambda: mc.run_chain(x, w, tile=128, interleave=4)),
         ("interleave", lambda: mc.run_epi(x, w, v, v, v, tile=64,
@@ -247,12 +248,12 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(case):
 
 
 def test_chain_shared_memory_fits_every_probe_variant():
-    """Both kernels' layouts. The wgmma chain (run_chain, run_epi): the
-    probes' 11 layers at width 256 fit a CTA's 227 KB with eight weight
-    stages and both 64-row x tiles, for every epilogue (with the FiLM
-    vectors, exactly). The wmma chain
-    (run_wide): 32- and 64-row tiles at width 512; the 128-row tile does
-    not fit there."""
+    """Both kernels' layouts. The chain (run_chain, run_epi): the probes'
+    11 layers at width 256 fit a CTA's 227 KB with eight weight stages and
+    both 64-row x tiles, for every epilogue (with the FiLM vectors,
+    exactly). The wide chain (run_wide): at width 512 the two consumers'
+    A tiles (128 KB) leave six 16 KB weight stages, one layout for both
+    tiles (three stages per ring at tile 64)."""
     for epi in ("none", "film", "fold"):
         assert mc.chain_stages(256, 11, epi) == mc.MAX_STAGES
         assert mc.chain_smem(256, 11, epi) <= mc.MAX_SMEM
@@ -264,7 +265,10 @@ def test_chain_shared_memory_fits_every_probe_variant():
     layers = next(n for n in range(12, 100)
                   if mc.chain_stages(256, n, "film") < mc.MIN_STAGES)
     assert mc.chain_smem(256, layers - 1, "film") <= mc.MAX_SMEM
-    for tile in (32, 64):
-        assert mc.wide_smem(tile, 512) <= mc.MAX_SMEM
-    assert mc.wide_smem(128, 512) > mc.MAX_SMEM
-    assert mc.wide_smem(128, 256) <= mc.MAX_SMEM
+    assert mc.wide_stages(512) == 6
+    assert mc.wide_smem(512) == 2048 + 6 * 16384 + 2 * 64 * 512 * 2
+    assert mc.wide_smem(512) <= mc.MAX_SMEM
+    assert mc.wide_stages(512) // 2 >= 2      # tile 64: two rings
+    for h in range(64, 512, 64):
+        assert mc.wide_smem(h) <= mc.MAX_SMEM
+        assert mc.wide_stages(h) >= mc.wide_stages(512)
