@@ -25,7 +25,8 @@ Phases (any failure exits non-zero):
      overlap kernel (the one left on wmma) issues no HMMA, or if ptxas
      notes (C7520 / C7512) say it serialized a library's wgmma products;
      and the gather kernel's bulk copies (UBLKCP), failing without them or
-     with any per-thread cp.async piece (LDGSTS);
+     with any per-thread cp.async piece (LDGSTS); the ray library's
+     kernels likewise, failing if the finalize kernel has no bulk copy;
   2. the forward kernel against its plain torch version at the serving
      shape (B=1, N=4096x48), two ragged ones (N not a multiple of the
      tile; B=2, N=20000 has tiles that run from one batch element into the
@@ -38,7 +39,9 @@ Phases (any failure exits non-zero):
   3. the ray kernels against their plain versions at the serving block
      (B=1, R=4096, 48+48 samples, no noise), the training microbatch
      (B=6, R=1024, 24+24, sigma noise) and a ragged shape: fine z, comp,
-     depth, weights_sum; kernel, plain and torch-route times; and
+     depth, weights_sum; kernel (CUDA events around the wrapper; the
+     kernel's device time in the profiler; the wrapper's host time per
+     call), plain and torch-route times; and
      ray_finalize_vjp's cotangents against the torch route's autograd at
      the training shape;
   4. the fold kernel against its plain version at the flagship grid
@@ -106,8 +109,9 @@ from pathlib import Path
 
 import torch
 
-from fenerf_tpu_torch.ops.probes import (PEAK_F32_FLOPS, bound_ms, card,
-                                         time_ms)
+from fenerf_tpu_torch.ops.probes import (N_OUT, PEAK_F32_FLOPS, RAY_SHAPES,
+                                         bound_ms, card, device_ms, host_us,
+                                         ray_bounds, ray_inputs, time_ms)
 
 FLAGSHIP = "TextureEmbeddingPiGAN256SEMANTICDISENTANGLE_DIM_96"
 # kernel vs plain version: both round every matmul operand to bf16 and
@@ -165,21 +169,26 @@ WMMA_KERNELS = {"dma_gather": ("gather_overlap_kernel",)}
 # the kernels that must move their rows by bulk copies (SASS UBLKCP, the
 # 1-D cp.async.bulk) and by no per-thread cp.async piece (LDGSTS), by library
 BULK_KERNELS = {"dma_gather": ("gather_kernel",)}
+# the kernels that must move their aligned blocks by bulk copies (UBLKCP);
+# their 4-byte cp.async pieces (LDGSTS) move the blocks that are not 16-byte
+# multiples, so those are printed only
+RING_KERNELS = {"ray_finalize": ("ray_finalize_kernel",)}
 # (UTMALDG / UTMASTG: the 2-D tensor copies, printed only)
 SASS_OPS = ("HGMMA", "HMMA", "UBLKCP", "LDGSTS", "UTMALDG", "UTMASTG")
 
 
 def phase_sass(build):
     """Registers, spills and the HGMMA / HMMA / UBLKCP / LDGSTS / UTMALDG /
-    UTMASTG instruction counts of every kernel of the field, chain and
-    gather libraries (cuobjdump); fails if a kernel of HOPPER_KERNELS issues
-    no HGMMA or any HMMA, one of WMMA_KERNELS no HMMA, or one of
-    BULK_KERNELS no UBLKCP or any LDGSTS."""
+    UTMASTG instruction counts of every kernel of the field, chain, gather
+    and ray libraries (cuobjdump); fails if a kernel of HOPPER_KERNELS
+    issues no HGMMA or any HMMA, one of WMMA_KERNELS no HMMA, one of
+    BULK_KERNELS no UBLKCP or any LDGSTS, or one of RING_KERNELS no
+    UBLKCP."""
     import subprocess
 
     cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
     for lib in dict.fromkeys((*HOPPER_KERNELS, *WMMA_KERNELS,
-                              *BULK_KERNELS)):
+                              *BULK_KERNELS, *RING_KERNELS)):
         so = str(build._so_path(lib))
         usage = subprocess.run([cuobjdump, "--dump-resource-usage", so],
                                capture_output=True, text=True,
@@ -233,6 +242,12 @@ def phase_sass(build):
                     f"{lib}: {k} must move its rows by bulk copies (UBLKCP) "
                     f"and no cp.async pieces (LDGSTS): {fns}, opcodes "
                     f"{sorted(set().union(*(opcodes[f] for f in fns)))}")
+        for k in RING_KERNELS.get(lib, ()):
+            fns = [fn for fn in counts if k in fn]
+            if not fns or any(counts[fn]["UBLKCP"] == 0 for fn in fns):
+                raise AssertionError(
+                    f"{lib}: {k} must move its blocks by bulk copies "
+                    f"(UBLKCP): {fns}")
         # ptxas serialized every wgmma of a kernel: it still issues HGMMA,
         # one at a time, so only its notes show it
         notes = [ln for ln in build.BUILD_LOG.get(lib, "").splitlines()
@@ -428,30 +443,18 @@ FOLD_TOL = 1e-6
 # the library's conv3d vs the plain fold, relative: the same eight terms
 # (and zeros) in the order of the algorithm cuDNN picks, f32 with TF32 off
 LIBRARY_FOLD_TOL = 1e-5
-# (label, B, R, S, sigma noise): one 4096-ray block of a 128^2 serve render
-# at 48 steps, one training microbatch (6 fakes, 32^2, 24 steps), a ragged
-# ray count
-RAY_SHAPES = (("serving", 1, 4096, 48, False), ("training", 6, 1024, 24, True),
-              ("ragged", 3, 1001, 37, True))
-N_OUT = 22   # the flagship field's outputs: 18 labels, rgb, sigma
+# (the shapes, RAY_SHAPES, and the draws are ops/probes.py's, shared with
+# scripts/profile_torch_ray_kernels.py)
 
 
-def _ray_inputs(gen, dev, b, r, s, c1=N_OUT):
-    """Stratified z in [0.88, 1.12], sigma with half the rays opaque, and a
-    maker of (B, R, n, c1) field outputs (channels in [0, 1), sigma last)."""
-    z0 = torch.linspace(0.88, 1.12, s, device=dev)
-    z = z0 + torch.rand(b, r, s, generator=gen, device=dev) * (0.24 / s)
-    level = torch.where(
-        torch.rand(b, r, 1, generator=gen, device=dev) < 0.5, 20.0, -5.0)
-    sigma = torch.randn(b, r, s, generator=gen, device=dev) * 10 + level
-
-    def outputs(n):
-        return torch.cat([
-            torch.rand(b, r, n, c1 - 1, generator=gen, device=dev),
-            torch.randn(b, r, n, 1, generator=gen, device=dev) * 10
-            + level[..., None]], dim=-1)
-
-    return z, sigma, outputs
+def _device_ms(fn, kernel: str) -> float | None:
+    """The kernel's device time in the profiler's trace, or None (logged)
+    where the trace keeps no record of it: a reading, not a check."""
+    try:
+        return device_ms(fn, 20, kernel)
+    except RuntimeError as e:
+        log(f"[ray] {kernel}: {e}")
+        return None
 
 
 def phase_ray(dev) -> tuple[dict, dict]:
@@ -467,7 +470,7 @@ def phase_ray(dev) -> tuple[dict, dict]:
     gen = torch.Generator(device=dev).manual_seed(4)
     rows_rs, rows_fin = [], []
     for label, b, r, s, noisy in RAY_SHAPES:
-        z, sigma, outputs = _ray_inputs(gen, dev, b, r, s)
+        z, sigma, outputs = ray_inputs(gen, dev, b, r, s)
         randn = lambda n: torch.randn(b, r, n, generator=gen, device=dev)
         nz_c, nz_f = (randn(s), randn(2 * s)) if noisy else (None, None)
         u = torch.rand(b, r, s, generator=gen, device=dev)
@@ -487,28 +490,37 @@ def phase_ray(dev) -> tuple[dict, dict]:
             return integ.sample_pdf(integ.midpoints(z), (w + 1e-5)[..., 1:-1],
                                     s, u=u)
 
-        rs = {"ms": time_ms(lambda: rf.ray_resample(sigma, z, nz_c, u), 20),
+        kernel_rs = lambda: rf.ray_resample(sigma, z, nz_c, u)
+        kernel_fn = lambda: rf.ray_finalize(fo, co, fz, z, nz_f)
+        # ms: CUDA events around back-to-back wrapper calls (the host's
+        # dispatch included where it is the slower side); device_ms: the
+        # kernel's own duration in the profiler; host_us: the wrapper's
+        # enqueue per call
+        rs = {"ms": time_ms(kernel_rs, 20),
+              "device_ms": _device_ms(kernel_rs, "ray_resample_kernel"),
+              "host_us": host_us(kernel_rs, 100),
               "plain_ms": time_ms(lambda: rf.ray_resample_reference(
                   sigma, z, nz_c, u), 5),
               "torch_route_ms": time_ms(torch_resample, 5)}
-        fn = {"ms": time_ms(lambda: rf.ray_finalize(fo, co, fz, z, nz_f), 20),
+        fn = {"ms": time_ms(kernel_fn, 20),
+              "device_ms": _device_ms(kernel_fn, "ray_finalize_kernel"),
+              "host_us": host_us(kernel_fn, 100),
               "plain_ms": time_ms(lambda: rf.ray_finalize_reference(
                   fo, co, fz, z, nz_f), 5),
               "torch_route_ms": time_ms(lambda: integ.composite_merged_nosort(
                   fo, co, fz, z, noise=nz_f, noise_std=1.0), 5)}
-        rows, t = b * r, 2 * s
-        # bytes: every input read once, every output written once; ops: a
-        # few dozen f32 operations per sample, 2 per channel and sample
-        rs["bound_ms"], rs["bound_by"] = bound_ms(
-            rows * s * 40, 4 * rows * s * (4 + noisy), PEAK_F32_FLOPS)
-        fn["bound_ms"], fn["bound_by"] = bound_ms(
-            rows * t * (2 * N_OUT + 30),
-            4 * rows * (t * (N_OUT + 1 + noisy) + N_OUT + 1), PEAK_F32_FLOPS)
+        (rs["bound_ms"], rs["bound_by"]), (fn["bound_ms"], fn["bound_by"]) = \
+            ray_bounds(b, r, s, noisy)
         log(f"[ray] {label} B={b} R={r} S={s}+{s} noise={noisy}: "
             f"max|kernel-plain| fine z {err_z:.3e}, comp {errs[0]:.3e}, "
             f"depth {errs[1]:.3e}, weights_sum {errs[2]:.3e} (tol {RAY_TOL})")
         for name, d in (("ray_resample", rs), ("ray_finalize", fn)):
-            log(f"[ray] {label} {name}: kernel {d['ms']:.4f} ms, plain "
+            dev_ms = d["device_ms"]
+            device = ("device not measured" if dev_ms is None else
+                      f"device {dev_ms:.4f} ms, {d['bound_ms'] / dev_ms:.1%} "
+                      "of it the bound")
+            log(f"[ray] {label} {name}: kernel {d['ms']:.4f} ms ({device}; "
+                f"host {d['host_us']:.1f} us per call), plain "
                 f"{d['plain_ms']:.4f} ms, torch route "
                 f"{d['torch_route_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
                 f"({d['bound_by']})")
@@ -523,7 +535,7 @@ def phase_ray(dev) -> tuple[dict, dict]:
     # the VJP at the training shape: kernel forward, torch-route backward,
     # against autograd through the torch route itself (noise_std 0.7)
     b, r, s = 6, 1024, 24
-    z, _, outputs = _ray_inputs(gen, dev, b, r, s)
+    z, _, outputs = ray_inputs(gen, dev, b, r, s)
     fz = torch.sort(z + torch.rand(b, r, s, generator=gen, device=dev)
                     * 0.01, -1).values
     nz = torch.randn(b, r, 2 * s, generator=gen, device=dev)

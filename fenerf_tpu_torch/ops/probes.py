@@ -1,14 +1,19 @@
-"""Measurement on the card for chip_smoke.py and the ceiling-probe scripts
-(scripts/profile_torch_{mxu_chain,epilogue_overlap,dma_gather}.py): the
-card's name and power limit, CUDA-event timing, the roofline bound; and the
-probes' shapes (those of the JAX scripts scripts/profile_{mxu_chain,
-epilogue_overlap,dma_gather}.py) and seeded draws.
+"""Measurement on the card for chip_smoke.py, the ceiling-probe scripts
+(scripts/profile_torch_{mxu_chain,epilogue_overlap,dma_gather}.py) and the
+ray kernels' script (scripts/profile_torch_ray_kernels.py): the card's name
+and power limit, CUDA-event timing, device time from the profiler's kernel
+durations, the host's time per call, the roofline bound; the probes' shapes
+(those of the JAX scripts scripts/profile_{mxu_chain,epilogue_overlap,
+dma_gather}.py) and seeded draws; the ray kernels' main-path shapes and
+draws.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -57,6 +62,69 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel: str) -> float:
+    """Mean device duration in ms of the kernels whose name contains
+    `kernel`, per launch, over iters calls of fn (torch.profiler's CUDA
+    kernel records: the kernel alone, without the host's dispatch or the
+    gaps between launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # a trace now and then comes back without the kernel records: trace
+    # again (three times at most)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and kernel in evt.key:
+                total_us += evt.self_device_time_total
+                count += evt.count
+        if count:
+            return total_us / count / 1e3
+    raise RuntimeError(f"device_ms: no CUDA kernel named *{kernel}* in "
+                       "three traces")
+
+
+def host_us(fn, iters: int) -> float:
+    """The host's time per call of fn in µs: the enqueue alone, the device
+    drained before and after (fewer calls than the launch queue holds)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def empty_launcher(blocks: int, threads: int = 128):
+    """A function that launches an empty kernel of `blocks` CTAs of
+    `threads` on the current stream (ops/csrc/ray_finalize.cu's
+    empty_kernel, the floor under the ray kernels' times), or None when the
+    library has none."""
+    from fenerf_tpu_torch.ops import ray_finalize
+
+    lib = ray_finalize._load_library()
+    if not hasattr(lib, "ray_empty_launch"):
+        return None
+    fn = lib.ray_empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        rc = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed ({rc})")
+
+    return launch
 
 
 def bound_ms(flops: float, nbytes: float,
@@ -164,3 +232,45 @@ def write_json(path: str, result: dict) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1) + "\n")
     print(f"wrote {out}", flush=True)
+
+
+# The ray kernels' main-path shapes (label, B, R, S, sigma noise): one
+# 4096-ray block of a 128^2 serve render at 48 steps, one training
+# microbatch (6 fakes, 32^2, 24 steps), a ragged ray count whose blocks are
+# not 16-byte multiples (37 x 22 floats)
+RAY_SHAPES = (("serving", 1, 4096, 48, False), ("training", 6, 1024, 24, True),
+              ("ragged", 3, 1001, 37, True))
+N_OUT = 22   # the flagship field's outputs: 18 labels, rgb, sigma
+
+
+def ray_inputs(gen: torch.Generator, device, b: int, r: int, s: int,
+               c1: int = N_OUT):
+    """Stratified z in [0.88, 1.12], sigma with half the rays opaque, and a
+    maker of (B, R, n, c1) field outputs (channels in [0, 1), sigma last)."""
+    z0 = torch.linspace(0.88, 1.12, s, device=device)
+    z = z0 + torch.rand(b, r, s, generator=gen, device=device) * (0.24 / s)
+    level = torch.where(
+        torch.rand(b, r, 1, generator=gen, device=device) < 0.5, 20.0, -5.0)
+    sigma = torch.randn(b, r, s, generator=gen, device=device) * 10 + level
+
+    def outputs(n):
+        return torch.cat([
+            torch.rand(b, r, n, c1 - 1, generator=gen, device=device),
+            torch.randn(b, r, n, 1, generator=gen, device=device) * 10
+            + level[..., None]], dim=-1)
+
+    return z, sigma, outputs
+
+
+def ray_bounds(b: int, r: int, s: int, noisy: bool
+               ) -> tuple[tuple[float, str], tuple[float, str]]:
+    """((ms, bound_by) of ray_resample, of ray_finalize) at S + S samples:
+    every input read once, every output written once; a few dozen f32
+    operations per sample, 2 per channel and sample."""
+    rows, t = b * r, 2 * s
+    resample = bound_ms(rows * s * 40, 4 * rows * s * (4 + noisy),
+                        PEAK_F32_FLOPS)
+    finalize = bound_ms(rows * t * (2 * N_OUT + 30),
+                        4 * rows * (t * (N_OUT + 1 + noisy) + N_OUT + 1),
+                        PEAK_F32_FLOPS)
+    return resample, finalize

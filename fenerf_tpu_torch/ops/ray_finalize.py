@@ -240,20 +240,24 @@ def ray_finalize_vjp(fine_out, coarse_out, fine_z, coarse_z, noise, *,
 _LIB = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ray_finalize.cu."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ray_resample_forward.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+    lib.ray_resample_forward.restype = ci
+    lib.ray_finalize_forward.argtypes = (
+        [vp] * 8 + [ci] * 9 + [cf] + [ci] * 3 + [vp])
+    lib.ray_finalize_forward.restype = ci
+    lib.ray_finalize_error_string.argtypes = [ci]
+    lib.ray_finalize_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _load_library():
     """ops/csrc/ray_finalize.cu, built for sm_90a into build/ and loaded."""
     global _LIB
     if _LIB is None:
-        lib = build.library("ray_finalize")
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ray_resample_forward.argtypes = [vp] * 5 + [ci] * 4 + [vp]
-        lib.ray_resample_forward.restype = ci
-        lib.ray_finalize_forward.argtypes = (
-            [vp] * 8 + [ci] * 9 + [cf] + [ci] * 3 + [vp])
-        lib.ray_finalize_forward.restype = ci
-        lib.ray_finalize_error_string.argtypes = [ci]
-        lib.ray_finalize_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = bind(build.library("ray_finalize"))
     return _LIB
 
 

@@ -187,7 +187,8 @@ def _ray_inputs(gen, device, b, r, s, c1=22):
     return z, sigma, out
 
 
-@pytest.mark.parametrize("b,r,s", [(1, 64, 12), (3, 1001, 48), (2, 37, 5)])
+@pytest.mark.parametrize("b,r,s", [(1, 64, 12), (3, 1001, 48), (2, 37, 5),
+                                   (2, 300, 3), (1, 200, 256)])
 @pytest.mark.parametrize("noisy", [True, False])
 @pytest.mark.parametrize("clamp", ["relu", "softplus"])
 def test_ray_resample_kernel_matches_plain(device, b, r, s, noisy, clamp):
@@ -208,9 +209,22 @@ def test_ray_resample_kernel_matches_plain(device, b, r, s, noisy, clamp):
     assert err <= RAY_TOL, err
 
 
+# the last seven: blocks that are not 16-byte multiples (7 x 5, 9 x 5 and
+# 37 x 22 floats: the cp.async path), S_f + S_c = 256 with S_f != S_c, more
+# rays than the persistent CTAs' warps hold in their rings (not a multiple
+# of the rays per CTA), and stages too large for four warps of two (256 x
+# 41 floats: two warps) or for two stages (256 x 128 floats: one warp, one
+# stage)
 @pytest.mark.parametrize("b,r,sf,sc,c1", [(2, 33, 8, 8, 5),
                                           (1, 1001, 48, 48, 22),
-                                          (3, 129, 24, 24, 22)])
+                                          (3, 129, 24, 24, 22),
+                                          (2, 33, 7, 9, 5),
+                                          (3, 1001, 37, 37, 22),
+                                          (2, 257, 100, 156, 22),
+                                          (3, 20011, 8, 8, 5),
+                                          (2, 4099, 48, 48, 22),
+                                          (1, 300, 128, 128, 41),
+                                          (1, 150, 96, 160, 128)])
 @pytest.mark.parametrize("noisy", [True, False])
 @pytest.mark.parametrize("kw", [
     dict(),
@@ -236,6 +250,134 @@ def test_ray_finalize_kernel_matches_plain(device, b, r, sf, sc, c1, noisy,
         assert g.shape == a.shape and torch.isfinite(g).all()
         err = (g - a).abs().max().item()
         assert err <= RAY_TOL, err
+
+
+def test_ray_resample_kernel_more_uniforms_than_samples(device):
+    """n_imp beyond the 32 x slots uniforms a warp holds at once (S = 12:
+    one slot, 80 uniforms in three rounds)."""
+    from fenerf_tpu_torch.ops import ray_finalize as rf
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    z, sigma, _ = _ray_inputs(gen, device, 2, 50, 12)
+    u = torch.rand(2, 50, 80, generator=gen, device=device)
+    got = rf.ray_resample(sigma, z, None, u)
+    ref = rf.ray_resample_reference(sigma, z, None, u)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= RAY_TOL
+
+
+def test_ray_resample_kernel_non_monotone_cdf(device):
+    """A z row with one descending step gives a negative weight, so the
+    doubling-sum cdf dips: the kernel counts cdf_j < u one by one instead of
+    bisecting, and still agrees with the plain version."""
+    from fenerf_tpu_torch.ops import ray_finalize as rf
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    b, r, s = 2, 300, 48
+    z, _, _ = _ray_inputs(gen, device, b, r, s)
+    z[..., [5, 6]] = z[..., [6, 5]]
+    sigma = torch.rand(b, r, s, generator=gen, device=device) * 5 + 5
+    u = torch.rand(b, r, s, generator=gen, device=device)
+    got = rf.ray_resample(sigma, z, None, u)
+    ref = rf.ray_resample_reference(sigma, z, None, u)
+    # the plain version's cdf, as its body computes it
+    alphas = 1.0 - torch.exp(-rf._deltas_last_1e10(z) * sigma.relu())
+    w = alphas * torch.exp(rf._prefix_sum(torch.log(1.0 - alphas + 1e-10),
+                                          exclusive=True))
+    wm = torch.nn.functional.pad((w[..., 1:-1] + 1e-5) + 1e-5, (1, 1))
+    cdf = rf._prefix_sum(wm / rf._prefix_sum(wm)[..., -1:])[..., :s - 1]
+    torch.cuda.synchronize()
+    assert (cdf[..., 1:] < cdf[..., :-1]).any(-1).all()
+    assert (got - ref).abs().max().item() <= RAY_TOL
+
+
+@pytest.mark.parametrize("order", ["coarse_ties", "coarse_shuffled"])
+def test_ray_finalize_kernel_coarse_order(device, order):
+    """Coarse z with equal neighbours (still non-decreasing: the bisection
+    path, ties going to the lower index) and shuffled coarse z (every
+    z_j counted one by one)."""
+    from fenerf_tpu_torch.ops import ray_finalize as rf
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    b, r, sf, sc = 2, 500, 48, 48
+    cz, _, out = _ray_inputs(gen, device, b, r, sc)
+    fz = torch.rand(b, r, sf, generator=gen, device=device) * 0.24 + 0.88
+    if order == "coarse_ties":
+        cz[..., 1::2] = cz[..., 0::2]
+        fz[..., ::3] = cz[..., 4:4 + len(range(0, sf, 3))]
+    else:
+        cz = cz[..., torch.randperm(sc, generator=torch.Generator().manual_seed(0))
+                .to(device)].contiguous()
+    fo, co = out(sf), out(sc)
+    noise = torch.randn(b, r, sf + sc, generator=gen, device=device)
+    got = rf.ray_finalize(fo, co, fz, cz, noise, last_back=True)
+    ref = rf.ray_finalize_reference(fo, co, fz, cz, noise, last_back=True)
+    torch.cuda.synchronize()
+    for g, a in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert (g - a).abs().max().item() <= RAY_TOL
+
+
+def test_ray_finalize_kernel_off_16_byte_base(device):
+    """Blocks of a 16-byte-multiple size (48 x 22 floats) whose tensor
+    starts 4 bytes past a 16-byte boundary take the cp.async path and give
+    the bulk-copy path's results bit for bit."""
+    from fenerf_tpu_torch.ops import ray_finalize as rf
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    b, r, s, c1 = 1, 700, 48, 22
+    cz, _, out = _ray_inputs(gen, device, b, r, s, c1)
+    fz = torch.rand(b, r, s, generator=gen, device=device) * 0.24 + 0.88
+    fo, co = out(s), out(s)
+    noise = torch.randn(b, r, 2 * s, generator=gen, device=device)
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, device=device)
+        y = flat[1:].view(x.shape)
+        y.copy_(x)
+        assert y.is_contiguous() and y.data_ptr() % 16 == 4
+        return y
+
+    aligned = rf.ray_finalize(fo, co, fz, cz, noise, last_back=True)
+    off = rf.ray_finalize(shifted(fo), shifted(co), fz, cz, noise,
+                          last_back=True)
+    ref = rf.ray_finalize_reference(fo, co, fz, cz, noise, last_back=True)
+    torch.cuda.synchronize()
+    for a, o, p in zip(aligned, off, ref):
+        assert torch.equal(a, o)
+        assert (a - p).abs().max().item() <= RAY_TOL
+
+
+@pytest.mark.parametrize("sf,sc,c1", [(48, 48, 22), (37, 37, 22)])
+def test_ray_kernels_bitwise_run_to_run_and_by_position(device, sf, sc, c1):
+    """Both ray kernels give the same bits on every run, and a ray's result
+    does not depend on where it lies in the launch: the rays of a slice,
+    launched alone, equal the whole launch's (more rays than the persistent
+    CTAs' rings hold, so the whole launch walks each warp over several)."""
+    from fenerf_tpu_torch.ops import ray_finalize as rf
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    b, r = 2, 4099
+    cz, sigma, out = _ray_inputs(gen, device, b, r, sc, c1)
+    u = torch.rand(b, r, sf, generator=gen, device=device)
+    nz_c = torch.randn(b, r, sc, generator=gen, device=device)
+    nz_f = torch.randn(b, r, sf + sc, generator=gen, device=device)
+    fo, co = out(sf), out(sc)
+    fz = rf.ray_resample(sigma, cz, nz_c, u)
+    fz2 = rf.ray_resample(sigma, cz, nz_c, u)
+    kw = dict(fill_mode="seg_padding_background", softmax_label=True)
+    whole = rf.ray_finalize(fo, co, fz, cz, nz_f, **kw)
+    again = rf.ray_finalize(fo, co, fz, cz, nz_f, **kw)
+    assert torch.equal(fz, fz2)
+    for x, y in zip(whole, again):
+        assert torch.equal(x, y)
+    part = slice(1000, 1777)
+    sl = lambda x: x[1:, part].contiguous()
+    fz_part = rf.ray_resample(sl(sigma), sl(cz), sl(nz_c), sl(u))
+    assert torch.equal(fz_part, sl(fz))
+    got = rf.ray_finalize(sl(fo), sl(co), sl(fz), sl(cz), sl(nz_f), **kw)
+    for x, y in zip(got, whole):
+        assert torch.equal(x, sl(y))
 
 
 @pytest.mark.parametrize("grid_shape", [(3, 4, 5, 6), (32, 16, 16, 40),

@@ -142,6 +142,57 @@ def test_ray_finalize_vjp_noise_free_is_the_torch_route_gradient():
     torch.testing.assert_close(g, g_ref, atol=1e-6, rtol=1e-6)
 
 
+def _register_prefix_sum(x: np.ndarray, exclusive: bool) -> np.ndarray:
+    """numpy f32 emulation of ops/csrc/ray_finalize.cu::prefix_sum: sample
+    i of a warp's ray in lane i % 32, slot i / 32 (the slots past the last
+    sample hold zeros); a step sh < 32 shuffles every slot from lane
+    (l - sh) & 31 and a lane l < sh takes the previous slot's value (zero
+    below slot 0); a step sh >= 32 adds the slot sh / 32 below (zero below
+    slot 0); exclusive shifts by one lane the same way."""
+    n = x.shape[-1]
+    slots = -(-n // 32)
+    v = np.zeros(x.shape[:-1] + (slots, 32), np.float32)
+    v.reshape(x.shape[:-1] + (32 * slots,))[..., :n] = x
+    lane = np.arange(32)
+
+    def lane_shift(v, sh):
+        a = v[..., (lane - sh) & 31]   # the shuffle of each slot
+        prev = np.concatenate([np.zeros_like(a[..., :1, :]), a[..., :-1, :]],
+                              axis=-2)  # the previous slot's shuffle
+        return np.where(lane >= sh, a, prev)
+
+    sh = 1
+    while sh < n:
+        if sh < 32:
+            v = v + lane_shift(v, sh)
+        else:
+            ks = sh // 32
+            below = np.concatenate([np.zeros_like(v[..., :ks, :]),
+                                    v[..., :-ks, :]], axis=-2)
+            v = v + below
+        sh *= 2
+    if exclusive:
+        v = lane_shift(v, 1)
+    assert v.dtype == np.float32
+    return v.reshape(x.shape[:-1] + (32 * slots,))[..., :n]
+
+
+@pytest.mark.parametrize("s", [3, 5, 24, 37, 48, 96, 256])
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_register_prefix_sum_is_the_plain_order(s, exclusive):
+    """The kernels' register formulation of the lane-doubling sum adds the
+    same terms in the same order as the plain versions' _prefix_sum: bit
+    for bit, on log(1 - alpha)-like and weight-like rows."""
+    rng = np.random.default_rng(s)
+    x = np.concatenate([
+        np.log(rng.uniform(1e-3, 1.0, (64, s))),
+        rng.uniform(0.0, 1.0, (64, s)) * rng.uniform(1e-6, 1e3, (64, 1)),
+    ]).astype(np.float32)
+    got = _register_prefix_sum(x, exclusive)
+    want = trf._prefix_sum(torch.from_numpy(x), exclusive=exclusive).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 def test_gate(monkeypatch):
     rcfg = tgen.RenderConfig(num_steps=6, backend="kernel")
     monkeypatch.delenv("FENERF_RAY_KERNELS", raising=False)
