@@ -5,7 +5,9 @@
 Drives the port's main paths at the full width of the flagship model
 TextureEmbeddingPiGAN256SEMANTICDISENTANGLE_DIM_96 with random weights from
 a seed: serving (fenerf_tpu_torch.apps.serve) through the hand-written CUDA
-field kernel (ops/csrc/film_mlp.cu), and GAN training
+field kernel (ops/csrc/film_mlp.cu); the editing workflow's entry points
+(apps.render_multiview, apps.extract_shapes, apps.invert) through it and
+the backward kernels; and GAN training
 (fenerf_tpu_torch.train.loop) through it and the hand-written backward
 kernels (ops/csrc/film_mlp_bwd.cu) and the table-fold kernel
 (ops/csrc/zexp_fold.cu); and both again with the switch of the fused per-ray
@@ -33,12 +35,14 @@ Phases (any failure exits non-zero):
      next after a tile of the same CTA lay wholly in the first), the
      training renders' shape (B=6, N=32x32x24) and two whose every tile
      touches three or more batch elements (B=3, N=37; B=5, N=20: the
-     FiLM rows from device memory), max |diff| and the
+     FiLM rows from device memory), and invert's (B=1, N=128x128x24, also
+     an eval render's block of 8192 rays x 48), max |diff| and the
      time of each side, and as context_ms the same bf16 products through
      torch.matmul (the product path's yardstick);
   3. the ray kernels against their plain versions at the serving block
      (B=1, R=4096, 48+48 samples, no noise), the training microbatch
-     (B=6, R=1024, 24+24, sigma noise) and a ragged shape: fine z, comp,
+     (B=6, R=1024, 24+24, sigma noise), a ragged shape and a block of
+     invert's eval render (B=1, R=8192, 48+48, no noise): fine z, comp,
      depth, weights_sum; kernel (CUDA events around the wrapper; the
      kernel's device time in the profiler; the wrapper's host time per
      call), plain and torch-route times; and
@@ -53,7 +57,30 @@ Phases (any failure exits non-zero):
      rgb / seg requests on a batch-1 server and 6 concurrent requests on a
      --batch 4 server; the kernels of the route launched (4 + 4 ray-kernel
      launches per render with the switch on), no plain version called;
-     ms/request and rays/s of both routes;
+     ms/request and rays/s of both routes; a kind=depth PNG (the jet
+     table, no cv2); then, on the same checkpoint, the editing workflow:
+     a. render_multiview at its defaults (256^2, 24x2 steps, hierarchical,
+        psi 0.7), two seeds per ray route: the sheets' PNG sizes, the
+        launches of the route's kernels, ms per 5-view sheet, one view of
+        the ray kernels against the torch ray route and of the field
+        kernel against the field's torch route at bf16 (phase 6's 2e-2);
+     b. extract_shapes at 256^3 (the field's torch route in f32, as the
+        JAX package's XLA route) with --export_ply: the .mrc read back
+        (shape, finite), a non-empty mesh inside the cube at an iso level
+        inside the volume's range, seconds for the volume and the mesh;
+     c. invert at 128^2 x 24 steps, 60 iterations, eval every 20, ray
+        kernels on, --lambda_norm 0, on the same weights with sigma bias
+        +5, against the port's own render (PNG pair) at the CLI's init W
+        plus a known offset: the steps' losses fall, and the objective
+        without the W noise on the fitted path closes at least half of
+        its gap to the known offset's; the .npz and mious.npy are
+        whole, a warm start keeps the prior W, the launches of both runs;
+        the field's VJP w.r.t. the W-space FiLM at a step's shape,
+        kernel_train against the torch route (bf16, phase 9's criterion);
+        the backward kernels against their plain version at this path's
+        shape (B=1, 393,216 rows); one step's loss, kernel route against
+        the torch route (bf16, held), and its offset gradients (cosine,
+        printed only); ms per iteration and per eval render;
   6. one whole render through the field kernel against the same render
      through its plain version; the ray kernels' render against the torch
      route's; ray-chunked against whole-image rendering on both routes;
@@ -99,6 +126,7 @@ import math
 import os
 import re
 import statistics
+import struct
 import sys
 import tempfile
 import threading
@@ -107,6 +135,7 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from fenerf_tpu_torch.ops.probes import (N_OUT, PEAK_F32_FLOPS, RAY_SHAPES,
@@ -257,13 +286,13 @@ def phase_sass(build):
                                  + "\n".join(notes))
 
 
-def _flagship_params(dev, seed=0):
+def _flagship_params(dev, seed=0, sigma_bias=SIGMA_BIAS):
     from fenerf_tpu_torch.nn import fields
 
     cfg = fields.get_config(FLAGSHIP)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = fields.init_field(gen, cfg, device=dev)
-    params["sigma_head"]["b"] = params["sigma_head"]["b"] + SIGMA_BIAS
+    params["sigma_head"]["b"] = params["sigma_head"]["b"] + sigma_bias
     return cfg, params, gen
 
 
@@ -272,9 +301,11 @@ def _flagship_params(dev, seed=0):
 # more tiles than there are SMs), training's renders (a microbatch of 6
 # of the stage's 24 fakes, N=32^2 x 24 steps: D fakes and G forward), and
 # two whose every tile touches three or more batch elements (the FiLM rows
-# read from device memory, not from the staged tables)
+# read from device memory, not from the staged tables), and invert's (a
+# step's render, B=1, N=128^2 x 24 steps; also an eval render's block of
+# 8192 rays x 48 steps)
 FWD_SHAPES = ((1, 4096 * 48), (4, 12345), (2, 20000), (6, 32 * 32 * 24),
-              (3, 37), (5, 20))
+              (3, 37), (5, 20), (1, 128 * 128 * 24))
 
 
 def phase_kernel(dev) -> dict:
@@ -444,7 +475,9 @@ FOLD_TOL = 1e-6
 # (and zeros) in the order of the algorithm cuDNN picks, f32 with TF32 off
 LIBRARY_FOLD_TOL = 1e-5
 # (the shapes, RAY_SHAPES, and the draws are ops/probes.py's, shared with
-# scripts/profile_torch_ray_kernels.py)
+# scripts/profile_torch_ray_kernels.py; here also one 8192-ray block of
+# invert's 256^2 eval render at 48 + 48 steps, without sigma noise)
+RAY_CHECK_SHAPES = RAY_SHAPES + (("invert eval", 1, 8192, 48, False),)
 
 
 def _device_ms(fn, kernel: str) -> float | None:
@@ -458,8 +491,8 @@ def _device_ms(fn, kernel: str) -> float | None:
 
 
 def phase_ray(dev) -> tuple[dict, dict]:
-    """The ray kernels against their plain versions at RAY_SHAPES, timed
-    beside the plain versions and the torch route they replace; and
+    """The ray kernels against their plain versions at RAY_CHECK_SHAPES,
+    timed beside the plain versions and the torch route they replace; and
     ray_finalize_vjp's cotangents against the torch route's autograd.
     Returns (ray_resample, ray_finalize) results: the serving block's
     times and bound, the worst error over all shapes, each shape under
@@ -469,7 +502,7 @@ def phase_ray(dev) -> tuple[dict, dict]:
 
     gen = torch.Generator(device=dev).manual_seed(4)
     rows_rs, rows_fin = [], []
-    for label, b, r, s, noisy in RAY_SHAPES:
+    for label, b, r, s, noisy in RAY_CHECK_SHAPES:
         z, sigma, outputs = ray_inputs(gen, dev, b, r, s)
         randn = lambda n: torch.randn(b, r, n, generator=gen, device=dev)
         nz_c, nz_f = (randn(s), randn(2 * s)) if noisy else (None, None)
@@ -655,14 +688,21 @@ def _serve(render_np, meta):
     return srv, f"http://127.0.0.1:{srv.server_address[1]}"
 
 
-def write_checkpoint(dev, tmp) -> str:
+def write_checkpoint(dev, tmp, sigma_bias=SIGMA_BIAS, head_gain=1.0,
+                     name="generator.npz") -> str:
+    """The flagship's random weights (seed 1) as a generator .npz, the
+    sigma head's bias raised by sigma_bias, the colour and label heads'
+    last weights scaled by head_gain."""
     from fenerf_tpu_torch.apps.common import save_generator
 
-    _, params, _ = _flagship_params(dev, seed=1)
-    ckpt = os.path.join(tmp, "generator.npz")
+    _, params, _ = _flagship_params(dev, seed=1, sigma_bias=sigma_bias)
+    for head in (params["color_head"], params["label_head"][-1]):
+        head["w"] = head["w"] * head_gain
+    ckpt = os.path.join(tmp, name)
     t0 = time.perf_counter()
     save_generator(ckpt, params, params, params, FLAGSHIP, step=0)
-    log(f"[serve] wrote full-width checkpoint "
+    log(f"[serve] wrote full-width checkpoint, sigma bias {sigma_bias:+g}, "
+        f"head gain {head_gain:g} "
         f"({os.path.getsize(ckpt) / 2**20:.0f} MiB) in "
         f"{time.perf_counter() - t0:.1f} s")
     return ckpt
@@ -691,9 +731,13 @@ def phase_serve(ckpt, ray: str) -> dict:
         srv, base = _serve(render_np, meta)
         try:
             assert json.loads(_get(base + "/healthz"))["ok"] is True
-            for kind in ("rgb", "seg"):
+            for kind in ("rgb", "seg", "depth"):
                 body = _get(f"{base}/render?seed=3&yaw=0.2&psi=0.5&kind={kind}")
-                assert body[:8] == PNG_MAGIC, kind
+                # the PNG's IHDR: width and height of the render
+                if body[:8] != PNG_MAGIC or struct.unpack(
+                        ">II", body[16:24]) != (SERVE["image_size"],) * 2:
+                    raise AssertionError(f"kind={kind}: not a "
+                                         f"{SERVE['image_size']}^2 PNG")
             a = _get(f"{base}/render?seed=5&yaw=-0.1&pitch=0.05")
             b = _get(f"{base}/render?seed=5&yaw=-0.1&pitch=0.05")
             assert a == b, "same request gave different bytes"
@@ -855,6 +899,76 @@ def _macs_per_point_unfolded(cfg) -> int:
             + h * cfg.rgb_dim)
 
 
+def _bwd_case(cfg, params, pack, gen, b, n, dev, tag="[backward]") -> dict:
+    """The backward kernels against their plain version at (B, N): per
+    output group by ops/film_mlp_grad.py::bwd_agreement, bitwise equal run
+    to run, times beside the bound and the bf16 products through
+    torch.matmul. Raises on disagreement; returns the shape's numbers."""
+    from fenerf_tpu_torch.nn import fields
+    from fenerf_tpu_torch.ops import film_mlp_grad as gops
+
+    pts = (torch.rand(b, n, 3, generator=gen, device=dev) - 0.5) * 0.24
+    dirs = torch.nn.functional.normalize(
+        torch.randn(b, n, 3, generator=gen, device=dev), dim=-1)
+    zg = torch.randn(b, cfg.z_geo_dim, generator=gen, device=dev)
+    za = torch.randn(b, cfg.z_app_dim, generator=gen, device=dev)
+    fg, fa = fields.field_film(params, cfg, zg, za)
+    warped = pts * (2.0 / cfg.box_side)
+    gf = fields._grid_feats(params, warped, torch.bfloat16)
+    g_out = torch.randn(b, n, cfg.output_dim, generator=gen, device=dev)
+    args = (pack, warped, dirs, gf, fg, fa, g_out)
+    out = gops.film_mlp_bwd(*args)
+    again = gops.film_mlp_bwd(*args)
+    # timed before the plain version fills the allocator's cache
+    ms = time_ms(lambda: gops.film_mlp_bwd(*args), iters=5)
+    ref = gops.film_mlp_bwd_reference(*args)
+    torch.cuda.synchronize()
+    groups = gops.bwd_agreement(out, ref)
+    # no atomics: the same bits from run to run, in every output
+    bitwise = all(torch.equal(x, y) for xs, ys in zip(out[0], again[0])
+                  for x, y in zip(xs, ys)) and all(
+        (x is None and y is None) or torch.equal(x, y)
+        for x, y in zip(out[1:], again[1:]))
+    del again
+    worst_rel = max(groups, key=lambda r: r[1])
+    worst_cos = min(groups, key=lambda r: r[2])
+    rows = b * n
+    plain_ms = time_ms(lambda: gops.film_mlp_bwd_reference(*args),
+                       iters=2, warmup=1)
+    flops = 6 * _macs_per_point_unfolded(cfg) * rows
+    nbytes = (rows * (4 * 3 * 2 + 2 * cfg.grid_channels
+                      + 4 * cfg.output_dim               # inputs
+                      + 4 * 3 * 2 + 4 * cfg.grid_channels)  # outputs
+              + pack.weights.numel() * 2
+              + 4 * sum(w.numel() + bb.numel() for w, bb in out[0]))
+    bound, by = bound_ms(flops, nbytes)
+    context = _products_ms(_bwd_products(pack, rows), dev, iters=3)
+    log(f"{tag} B={b} N={n} rows={rows} worst max|diff|/max|plain| "
+        f"{worst_rel[1]:.3e} ({worst_rel[0]}), worst cosine "
+        f"{worst_cos[2]:.7f} ({worst_cos[0]}) (limits {gops.BWD_TOL}, "
+        f"per-point groups {gops.BWD_TOL_PER_POINT}, cos > "
+        f"{gops.BWD_COS}); bitwise equal run to run {bitwise}; kernel "
+        f"{ms:.3f} ms plain {plain_ms:.3f} ms, "
+        f"{rows / ms / 1e3:.2f} Mpts/s, {flops / ms / 1e9:.1f} TFLOP/s "
+        f"({bound / ms:.1%} of the bound), bound {bound:.3f} ms ({by}); "
+        f"context: the same {len(_bwd_products(pack, rows))} bf16 "
+        f"products (recompute, dX, dW) through torch.matmul "
+        f"{context:.3f} ms")
+    log(f"{tag} groups " + " ".join(
+        f"{nm}:{rel:.2e}/{cos:.6f}" for nm, rel, cos, _ in groups))
+    bad = [r for r in groups if not r[3]]
+    if bad:
+        raise AssertionError(f"backward kernel disagrees: {bad}")
+    if not bitwise:
+        raise AssertionError("backward kernel differs from run to run")
+    return {"B": b, "N": n, "max_abs_err": max(
+                (x - y).abs().max().item() for xs, ys in zip(out[0], ref[0])
+                for x, y in zip(xs, ys)),
+            "max_rel_err": worst_rel[1], "min_cos": worst_cos[2], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "context_ms": context, "bitwise": bitwise}
+
+
 def phase_backward(dev) -> dict:
     """The backward kernels against their plain version per output group,
     by the criterion ops/film_mlp_grad.py::bwd_agreement states (the one
@@ -867,72 +981,10 @@ def phase_backward(dev) -> dict:
     cfg, params, gen = _flagship_params(dev, seed=3)
     params = fields.with_grid_table(params, cfg, torch.bfloat16)
     pack = gops.pack_bwd(params, cfg)
-    shapes = []
     # the G shape, a ragged one, and one with more tiles than SMs and
     # N % 128 != 0
-    for b, n in ((6, 32 * 32 * 24), (2, 1000), (2, 20000)):
-        pts = (torch.rand(b, n, 3, generator=gen, device=dev) - 0.5) * 0.24
-        dirs = torch.nn.functional.normalize(
-            torch.randn(b, n, 3, generator=gen, device=dev), dim=-1)
-        zg = torch.randn(b, cfg.z_geo_dim, generator=gen, device=dev)
-        za = torch.randn(b, cfg.z_app_dim, generator=gen, device=dev)
-        fg, fa = fields.field_film(params, cfg, zg, za)
-        warped = pts * (2.0 / cfg.box_side)
-        gf = fields._grid_feats(params, warped, torch.bfloat16)
-        g_out = torch.randn(b, n, cfg.output_dim, generator=gen, device=dev)
-        args = (pack, warped, dirs, gf, fg, fa, g_out)
-        out = gops.film_mlp_bwd(*args)
-        again = gops.film_mlp_bwd(*args)
-        # timed before the plain version fills the allocator's cache
-        ms = time_ms(lambda: gops.film_mlp_bwd(*args), iters=5)
-        ref = gops.film_mlp_bwd_reference(*args)
-        torch.cuda.synchronize()
-        groups = gops.bwd_agreement(out, ref)
-        # no atomics: the same bits from run to run, in every output
-        bitwise = all(torch.equal(x, y) for xs, ys in zip(out[0], again[0])
-                      for x, y in zip(xs, ys)) and all(
-            (x is None and y is None) or torch.equal(x, y)
-            for x, y in zip(out[1:], again[1:]))
-        del again
-        worst_rel = max(groups, key=lambda r: r[1])
-        worst_cos = min(groups, key=lambda r: r[2])
-        rows = b * n
-        plain_ms = time_ms(lambda: gops.film_mlp_bwd_reference(*args),
-                           iters=2, warmup=1)
-        flops = 6 * _macs_per_point_unfolded(cfg) * rows
-        nbytes = (rows * (4 * 3 * 2 + 2 * cfg.grid_channels
-                          + 4 * cfg.output_dim               # inputs
-                          + 4 * 3 * 2 + 4 * cfg.grid_channels)  # outputs
-                  + pack.weights.numel() * 2
-                  + 4 * sum(w.numel() + bb.numel() for w, bb in out[0]))
-        bound, by = bound_ms(flops, nbytes)
-        context = _products_ms(_bwd_products(pack, rows), dev, iters=3)
-        log(f"[backward] B={b} N={n} rows={rows} worst max|diff|/max|plain| "
-            f"{worst_rel[1]:.3e} ({worst_rel[0]}), worst cosine "
-            f"{worst_cos[2]:.7f} ({worst_cos[0]}) (limits {gops.BWD_TOL}, "
-            f"per-point groups {gops.BWD_TOL_PER_POINT}, cos > "
-            f"{gops.BWD_COS}); bitwise equal run to run {bitwise}; kernel "
-            f"{ms:.3f} ms plain {plain_ms:.3f} ms, "
-            f"{rows / ms / 1e3:.2f} Mpts/s, {flops / ms / 1e9:.1f} TFLOP/s "
-            f"({bound / ms:.1%} of the bound), bound {bound:.3f} ms ({by}); "
-            f"context: the same {len(_bwd_products(pack, rows))} bf16 "
-            f"products (recompute, dX, dW) through torch.matmul "
-            f"{context:.3f} ms")
-        log("[backward] groups " + " ".join(
-            f"{nm}:{rel:.2e}/{cos:.6f}" for nm, rel, cos, _ in groups))
-        bad = [r for r in groups if not r[3]]
-        if bad:
-            raise AssertionError(f"backward kernel disagrees: {bad}")
-        if not bitwise:
-            raise AssertionError("backward kernel differs from run to run")
-        shapes.append({
-            "B": b, "N": n, "max_abs_err": max(
-                (x - y).abs().max().item() for xs, ys in zip(out[0], ref[0])
-                for x, y in zip(xs, ys)),
-            "max_rel_err": worst_rel[1], "min_cos": worst_cos[2], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "context_ms": context, "bitwise": bitwise})
-        del out, ref
+    shapes = [_bwd_case(cfg, params, pack, gen, b, n, dev)
+              for b, n in ((6, 32 * 32 * 24), (2, 1000), (2, 20000))]
     return {**shapes[0], **{k: max(s[k] for s in shapes) for k in
                             ("max_abs_err", "max_rel_err")},
             "min_cos": min(s["min_cos"] for s in shapes), "library_ms": None,
@@ -1145,6 +1197,409 @@ def phase_grad(dev, meta, trained):
                                               ccos)):
             raise AssertionError(f"non-finite G loss or gradient ({label})")
         del kern, bf, f32
+
+# the editing workflow's entry points (fenerf_tpu_torch/apps/): multiview
+# sheets at the CLI's defaults (256^2, 24 x 2 steps, hierarchical, psi 0.7,
+# ray_chunk 4096), a 256^3 shape, and an inversion at 128^2 x 24 steps
+MULTIVIEW_SEEDS = ("7", "8")      # the second sheet is timed warm
+SHEET = (256 + 2 + 2, 5 * (256 + 2) + 2, 3)   # make_grid's padding of 2
+INVERT_SIZE = 128
+INVERT = ["--image_size", str(INVERT_SIZE), "--num_steps", "24",
+          "--iterations", "60",
+          "--eval_every", "20", "--lambda_seg", "1", "--lambda_img", "1",
+          "--lambda_norm", "0"]
+# the inversion's checkpoint: the serving one's weights with sigma bias +5
+# (as the CPU tests') and the colour and label heads at SIREN's scale, 25x
+# pi-GAN's small head init, so that colour and labels depend on W (on the
+# serving checkpoint a W offset of 0.1 moves the objective by ~1e-6 of
+# its 0.1989)
+INVERT_SIGMA_BIAS = 5.0
+INVERT_HEAD_GAIN = 25.0
+# the target: the CLI's own init W (init_seed 0, init_psi 0) plus this
+# times one normal draw per W entry, rendered as a step renders, so that
+# the inversion can reach it (60 Adam steps at lr 1e-2 move an entry by up
+# to 0.6)
+INVERT_OFFSET = 0.3
+INVERT_OFFSET_SEED = 11
+# the objective without the W noise, on the fitted path (kernel_train) and
+# on fixed draws: at the known offset at least INVERT_GAP of its start
+# below the start (the target lies within W's reach), and at the fitted
+# offsets at most INVERT_CLOSE of that gap above the known offset's (the
+# seg term's one-hot target lies out of any W's reach on random weights,
+# so a share of the whole objective would mix in that floor)
+INVERT_GAP = 0.01
+INVERT_CLOSE = 0.5
+# one step's loss, kernel route vs the torch route at bf16, relative: the
+# same bf16 operands, f32 sums in another order; the pixels agree to 2e-2
+# at most (phase 6), to bf16 rounding in the mean, which moves a mean of
+# squared differences by about 1e-3
+LOSS_TOL = 1e-2
+
+
+def _app_films(ckpt, seed, dev, psi):
+    """The apps' W for `seed`: the EMA tree, the truncation average from a
+    generator seeded 42, the latents from one seeded `seed`."""
+    from fenerf_tpu_torch.apps.common import load_generator
+    from fenerf_tpu_torch.nn import fields
+
+    _, params, _, cfg, _ = load_generator(ckpt, device=dev)
+    with torch.no_grad():
+        avg = fields.avg_film(params, cfg,
+                              torch.Generator(device=dev).manual_seed(42))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        zg = torch.randn((1, cfg.z_geo_dim), generator=g, device=dev)
+        za = torch.randn((1, cfg.z_app_dim), generator=g, device=dev)
+        fg, fa = fields.field_film(params, cfg, zg, za)
+    return (params, cfg, fields.truncate_film(fg, avg[0], psi),
+            fields.truncate_film(fa, avg[1], psi))
+
+
+def phase_multiview(ckpt, tmp, dev) -> dict:
+    """render_multiview at its defaults, once per ray route: two sheets
+    each (the second timed warm), their PNGs, the launches of every kernel
+    of the route; one view of the ray-kernel route against the torch ray
+    route, and against the field's torch route at bf16 (phase 6's
+    criterion)."""
+    from fenerf_tpu_torch.apps import render_multiview
+    from fenerf_tpu_torch.models import generator as gen
+    from fenerf_tpu_torch.utils.image import read_png
+
+    views, out = {}, {"launches": {}}
+    for ray in ("never", "auto"):
+        d = os.path.join(tmp, f"multiview_{ray}")
+        with ray_kernels(ray):
+            # --- the main path: counts from zero ---
+            zero_counts()
+            sheets = render_multiview.main(["--ckpt", ckpt, "--seeds",
+                                            *MULTIVIEW_SEEDS,
+                                            "--output_dir", d])
+            launches, plain = read_counts()
+        for seed, v, _ in sheets:
+            if not (v.shape == (5, 22, 256, 256) and np.isfinite(v).all()):
+                raise AssertionError(f"bad views {v.shape}")
+            for kind in ("img", "seg"):
+                png = read_png(os.path.join(d, f"{kind}_{seed}.png"))
+                if png.shape != SHEET:
+                    raise AssertionError(f"{kind}_{seed}.png {png.shape}")
+        views[ray] = sheets[0][1][2]           # yaw offset 0 of seed 7
+        # per sheet: 5 views x 16 ray blocks x 2 field evaluations
+        blocks = 5 * len(sheets) * (256 * 256 // 4096)
+        ray_n = blocks if ray == "auto" else 0
+        log(f"[multiview ray={ray}] ms per 5-view sheet {sheets[1][2]:.1f} "
+            f"(first {sheets[0][2]:.1f}); launches {launches}, plain "
+            f"calls {plain}")
+        if (launches["film_mlp"] != 2 * blocks
+                or launches["ray_resample"] != ray_n
+                or launches["ray_finalize"] != ray_n or plain != 0):
+            raise AssertionError(f"multiview (ray={ray}) did not run "
+                                 "through its kernels alone")
+        out["launches"][ray] = launches
+        out[f"ms_per_sheet_{ray}"] = sheets[1][2]
+    err = float(np.abs(views["auto"] - views["never"]).max())
+    # the same view with the field's torch route at bf16
+    params, cfg, fg, fa = _app_films(ckpt, int(MULTIVIEW_SEEDS[0]), dev, 0.7)
+    rcfg = gen.RenderConfig(img_size=256, num_steps=48, fill_mode=
+                            "seg_padding_background", ray_chunk=4096,
+                            compute_dtype="bfloat16", backend="torch")
+    with ray_kernels("never"), torch.no_grad():
+        torch_view = gen.render(
+            params, cfg, rcfg, fg, fa, 1, camera=(math.pi / 2, math.pi / 2,
+                                                  12.0),
+            generator=torch.Generator(device=dev).manual_seed(0))[
+                "pixels"][0].float().cpu().numpy()
+    field_err = float(np.abs(views["never"] - torch_view).max())
+    log(f"[multiview] one view: max|ray kernels - torch ray route| pixel "
+        f"{err:.3e}, max|field kernel - torch field route (bf16)| pixel "
+        f"{field_err:.3e} (tol {RENDER_TOL})")
+    if not (err <= RENDER_TOL and field_err <= RENDER_TOL):
+        raise AssertionError(f"multiview routes disagree: {err}, "
+                             f"{field_err}")
+    return out
+
+
+def _ply_vertices(path):
+    with open(path) as f:
+        n_v = n_f = None
+        for line in f:
+            if line.startswith("element vertex"):
+                n_v = int(line.split()[-1])
+            elif line.startswith("element face"):
+                n_f = int(line.split()[-1])
+            elif line.startswith("end_header"):
+                break
+        verts = np.loadtxt(f, max_rows=n_v, dtype=np.float32, ndmin=2)
+    return verts, n_f
+
+
+def phase_shapes(ckpt, tmp) -> dict:
+    """extract_shapes at the default 256^3 lattice with --export_ply: the
+    .mrc read back (shape, finite), a mesh at an iso level inside the
+    volume's range (the 99.9th percentile of a 64^3 lattice of the same
+    field), its vertices inside the cube; seconds for the volume and the
+    mesh. The lattice takes the torch route in f32 (no kernel), as the
+    JAX package's takes XLA's."""
+    from fenerf_tpu_torch.apps import extract_shapes
+    from fenerf_tpu_torch.utils.mrc import read_mrc
+
+    d = os.path.join(tmp, "shapes")
+    extract_shapes.main(["--ckpt", ckpt, "--seeds", "7", "--output_dir",
+                         d + "_64", "--voxel_resolution", "64"])
+    iso = float(np.quantile(read_mrc(os.path.join(d + "_64",
+                                                  "shape_seed7.mrc")), 0.999))
+    zero_counts()
+    (timing,) = extract_shapes.main([
+        "--ckpt", ckpt, "--seeds", "7", "--output_dir", d,
+        "--export_ply", "--iso_level", f"{iso:.6f}"])
+    launches, plain = read_counts()
+    vol = read_mrc(os.path.join(d, "shape_seed7.mrc"))
+    verts, n_faces = _ply_vertices(os.path.join(d, "shape_seed7.ply"))
+    log(f"[shapes] 256^3 volume {timing['volume_s']:.2f} s, mesh "
+        f"{timing['mesh_s']:.2f} s ({len(verts)} vertices, {n_faces} faces "
+        f"at iso {iso:.4f}); sigma in [{vol.min():.3f}, {vol.max():.3f}]; "
+        f"launches {launches}, plain calls {plain}")
+    if vol.shape != (256, 256, 256) or not np.isfinite(vol).all():
+        raise AssertionError(f"bad volume {vol.shape}")
+    if not (vol.min() < iso < vol.max() and len(verts) > 0 and n_faces > 0):
+        raise AssertionError("empty mesh")
+    if np.abs(verts).max() > 0.15 + 1e-6:
+        raise AssertionError(f"mesh leaves the cube: {np.abs(verts).max()}")
+    return timing
+
+
+def phase_invert(ckpt, tmp, dev) -> dict:
+    """invert at 128^2 x 24 steps, 60 iterations, an eval render every 20
+    (FENERF_RAY_KERNELS=auto: the eval renders' hierarchy in the ray
+    kernels), on `ckpt` (sigma bias INVERT_SIGMA_BIAS, head gain
+    INVERT_HEAD_GAIN), against a target the port renders at the CLI's init
+    W plus a known offset; the step losses fall, the objective without the
+    W noise on the fitted path closes at least 1 - INVERT_CLOSE of its gap
+    to the known offset's, the .npz and mious.npy are whole, a warm start
+    keeps the first run's W + offsets as its base; the launches of both
+    runs; the field's VJP w.r.t. the FiLM, kernel_train against the torch
+    route (bf16), at a step's shape; the backward kernels against their
+    plain version at this path's shape (B=1, 393,216 rows); one step's
+    loss, kernel route against the torch route (bf16), held, and the
+    cosine of its offset gradients, printed only (T7)."""
+    from fenerf_tpu_torch.apps import invert
+    from fenerf_tpu_torch.apps.common import load_generator
+    from fenerf_tpu_torch.models import generator as gen
+    from fenerf_tpu_torch.nn import fields
+    from fenerf_tpu_torch.ops import film_mlp_grad as gops
+    from fenerf_tpu_torch.utils.image import save_png, to_uint8
+
+    _, params, _, cfg, _ = load_generator(ckpt, device=dev)
+
+    def step_rcfg(backend, dtype):
+        """A step's render (the CLI's), on `backend` at `dtype`."""
+        return gen.RenderConfig(img_size=INVERT_SIZE, num_steps=24,
+                                hierarchical=False, h_stddev=0.0,
+                                v_stddev=0.0, sample_dist=None,
+                                compute_dtype=dtype, backend=backend)
+
+    # the target: init W + a known offset, rendered as a step renders (the
+    # forward kernel); RGB, and labels 1-18 from the 18 label channels
+    w0 = invert.init_w(params, cfg, 0, 0.0, dev)
+    g = torch.Generator(device=dev).manual_seed(INVERT_OFFSET_SEED)
+    known = {br: tuple(torch.randn(x.shape, generator=g, device=dev)
+                       * INVERT_OFFSET for x in w0[br])
+             for br in invert.BRANCHES}
+    with torch.no_grad():
+        pix = gen.render(
+            params, cfg, step_rcfg("kernel", "bfloat16"),
+            *invert.noisy_film(w0, known), 1, noise_std=0.0,
+            generator=torch.Generator(device=dev).manual_seed(0))[
+                "pixels"][0].float().cpu().numpy()
+    img_p, seg_p = (os.path.join(tmp, f"target_{k}.png")
+                    for k in ("rgb", "seg"))
+    save_png(img_p, to_uint8(pix[-3:], normalize=False).transpose(1, 2, 0))
+    save_png(seg_p, (np.argmax(pix[:-3], axis=0) + 1).astype(np.uint8))
+    common = ["--ckpt", ckpt, "--image_path", img_p, "--seg_path", seg_p]
+    with ray_kernels("auto"):
+        # --- the main path: counts from zero ---
+        zero_counts()
+        res = invert.main(["target", *common, *INVERT,
+                           "--save_dir", os.path.join(tmp, "inv")])
+        warm = invert.main(["warm", *common, *INVERT[:4],
+                            "--iterations", "1", "--lambda_seg", "1",
+                            "--lambda_img", "1", "--load_offsets", res.path,
+                            "--save_dir", os.path.join(tmp, "inv2")])
+        launches, plain = read_counts()
+    log(f"[invert] {len(res.losses)} iterations: loss {res.losses[0]:.5f} "
+        f"-> {res.losses[-1]:.5f}, mIoU {np.round(res.mious, 4).tolist()}; "
+        f"{res.ms_per_iteration:.2f} ms per iteration, "
+        f"{res.ms_per_eval:.2f} ms per eval render (+ mIoU); warm start "
+        f"{warm.ms_per_iteration:.2f} ms per iteration; launches {launches}"
+        f", plain calls {plain}")
+    with np.load(res.path) as a, np.load(warm.path) as b:
+        if len(a.files) != 12 or not all(np.isfinite(a[k]).all()
+                                         for k in a.files):
+            raise AssertionError(f"bad inversion checkpoint {a.files}")
+        same = all(np.array_equal(b[f"w_{k}"], a[k]) for k in
+                   ("freq_geo", "phase_geo", "freq_app", "phase_app"))
+    if len(np.load(os.path.join(tmp, "inv", "mious.npy"))) != 3:
+        raise AssertionError("mious.npy does not hold 3 entries")
+    if not same:
+        raise AssertionError("the warm start did not keep the prior W")
+    # per run: a forward and a backward per iteration; per eval render
+    # 8 ray blocks of 8192, two field evaluations each
+    evals = 3 + 1
+    want = {"film_mlp": 61 + evals * 16, "film_mlp_bwd": 61,
+            "ray_resample": evals * 8, "ray_finalize": evals * 8}
+    if any(launches[k] != v for k, v in want.items()) or plain != 0:
+        raise AssertionError(f"invert did not run through its kernels "
+                             f"alone: {launches}, {plain} plain, want {want}")
+
+    # the loss falls: the steps' own losses, and the objective without the
+    # W noise, on one fixed set of draws, on the path that was fitted
+    # (kernel_train), at the start (zero offsets) and at the fitted offsets
+    with np.load(res.path) as a:
+        t = lambda k: torch.as_tensor(a[k], device=dev)
+        w = {br: (t(f"w_freq_{br}"), t(f"w_phase_{br}")) for br in
+             invert.BRANCHES}
+        offsets = {br: (t(f"offset_freq_{br}"), t(f"offset_phase_{br}"))
+                   for br in invert.BRANCHES}
+    zero = {br: tuple(torch.zeros_like(x) for x in w[br])
+            for br in invert.BRANCHES}
+    tgt = invert.load_targets(img_p, seg_p, INVERT_SIZE, False)
+    tt = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    def problem(backend, dtype):
+        return invert.Problem(
+            fields.with_grid_table(params, cfg, torch.bfloat16), cfg,
+            step_rcfg(backend, dtype), w, tt(tgt[0]), tt(tgt[1]), 1.0, 1.0,
+            0.0, 0.0, None, {"geo": 1.0, "app": 1.0})
+
+    fitted = problem("kernel_train", "float32")
+    draws = gen.draw_render(torch.Generator(device=dev).manual_seed(6), 1,
+                            fitted.rcfg, 0.0, None, dev)
+    with torch.no_grad():
+        start, end, floor = (invert.loss_fn(fitted, o, zero, draws)[0].item()
+                             for o in (zero, offsets, known))
+    left = (end - floor) / (start - floor)
+    log(f"[invert] the objective without W noise (kernel_train, fixed "
+        f"draws): {start:.9f} at the start, {end:.9f} at the fitted "
+        f"offsets ({end / start:.4f} of the start), {floor:.9f} at the "
+        f"known one (the gap {(start - floor) / start:.4f} of the start, at "
+        f"least {INVERT_GAP}; the fit leaves {left:.4f} of it, at most "
+        f"{INVERT_CLOSE}); "
+        f"the steps' own losses {res.losses[0]:.9f} -> "
+        f"{res.losses[-1]:.9f}; the offsets' distance to the known one "
+        f"{_offset_distance(offsets, known):.4f} (from zero "
+        f"{_offset_distance(zero, known):.4f})")
+    if not (start - floor >= INVERT_GAP * start and left <= INVERT_CLOSE
+            and res.losses[-1] < res.losses[0]):
+        raise AssertionError(f"the inversion's loss did not fall: "
+                             f"{start} -> {end} (known offset {floor}), "
+                             f"steps {res.losses[0]} -> "
+                             f"{res.losses[-1]}")
+
+    # the field's VJP w.r.t. the W-space FiLM, which is what the offsets'
+    # gradients flow through, at a step's shape (B=1, 393,216 points) and
+    # the fitted W: kernel_train against the torch route at bf16, held to
+    # phase 9's criterion (T7: a whole render's gradient is not smooth in
+    # the roundings, the field's VJP is)
+    g = torch.Generator(device=dev).manual_seed(8)
+    n = INVERT_SIZE ** 2 * 24
+    pts = (torch.rand(1, n, 3, generator=g, device=dev) - 0.5) * 0.24
+    dirs = torch.nn.functional.normalize(
+        torch.randn(1, n, 3, generator=g, device=dev), dim=-1)
+    g_out = torch.randn(1, n, cfg.output_dim, generator=g, device=dev)
+    films = [x.detach().requires_grad_() for br in invert.noisy_film(
+        w, offsets) for x in br]
+    vjp = {}
+    for backend in ("kernel_train", "torch"):
+        out = fields.apply_field(fitted.params, cfg, pts, dirs, films[:2],
+                                 films[2:], compute_dtype=torch.bfloat16,
+                                 backend=backend)
+        vjp[backend] = torch.autograd.grad((out * g_out).sum(), films)
+        del out
+    vjp_cos, vjp_norm, n_cmp = _grad_compare(vjp["kernel_train"],
+                                             vjp["torch"])
+    log(f"[invert] field VJP w.r.t. the W-space FiLM at B=1 N={n}, fitted "
+        f"W: kernel_train vs torch bf16 over {n_cmp} groups (freq / phase, "
+        f"geo / app): worst cosine {vjp_cos:.7f} (> {GRAD_COS}), worst "
+        f"norm difference {vjp_norm:.5f} (< {GRAD_NORM})")
+    if not (vjp_cos > GRAD_COS and vjp_norm < GRAD_NORM):
+        raise AssertionError("the inversion's FiLM gradient through the "
+                             "kernels disagrees with the torch route")
+    del vjp, films, pts, dirs, g_out
+
+    # the backward kernels at this path's shape
+    cfg3, params3, gen3 = _flagship_params(dev, seed=4)
+    params3 = fields.with_grid_table(params3, cfg3, torch.bfloat16)
+    bwd = _bwd_case(cfg3, params3, gops.pack_bwd(params3, cfg3), gen3,
+                    1, 128 * 128 * 24, dev, tag="[invert backward]")
+
+    # one step's loss and offset gradients: kernel route vs the torch route
+    # (bf16) on the same draws
+    losses, grads = {}, {}
+    for backend, dtype in (("kernel_train", "float32"),
+                           ("torch", "bfloat16")):
+        prob = problem(backend, dtype)
+        g = torch.Generator(device=dev).manual_seed(5)
+        noise, draws = invert.step_draws(g, prob, 0.01, dev)
+        (losses[backend], _, _), grads[backend] = invert.loss_and_grads(
+            prob, offsets, noise, draws)
+        if backend == "kernel_train":
+            # where a step's device time goes: the kernels' own durations
+            # in the profiler (the dW kernel runs although no parameter
+            # takes a gradient)
+            step_dev = _device_groups(
+                lambda: invert.loss_and_grads(prob, offsets, noise, draws),
+                ("film_mlp_kernel", "bwd_rows_kernel", "dw_kernel",
+                 "reduce_kernel"))
+            log(f"[invert] a step's device time (loss and gradients, "
+                f"profiler, mean of 3): " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in step_dev.items()))
+    cos = {}
+    for br in invert.BRANCHES:
+        for k, name in enumerate(("freq", "phase")):
+            a = grads["kernel_train"][br][k].double().ravel()
+            b = grads["torch"][br][k].double().ravel()
+            cos[f"{name}_{br}"] = float(a @ b / (a.norm() * b.norm()))
+    loss_k, loss_t = (losses[k].item() for k in ("kernel_train", "torch"))
+    loss_err = abs(loss_k - loss_t) / abs(loss_t)
+    log(f"[invert] one step's loss, kernel route {loss_k:.9f}, torch route "
+        f"(bf16) {loss_t:.9f}: relative difference {loss_err:.3e} (tol "
+        f"{LOSS_TOL}); its offset gradients, cosine kernel route vs torch "
+        "route (printed, not held: T7): "
+        + " ".join(f"{k} {v:.6f}" for k, v in cos.items()))
+    if not loss_err <= LOSS_TOL:
+        raise AssertionError(f"a step's loss, kernel route vs torch route: "
+                             f"{loss_k} vs {loss_t}")
+    return {"launches": launches, "ms_per_iteration": res.ms_per_iteration,
+            "ms_per_eval": res.ms_per_eval, "bwd": bwd, "cosine": cos,
+            "step_device_ms": step_dev, "loss_rel_err": loss_err,
+            "film_vjp_cos": vjp_cos, "film_vjp_norm": vjp_norm}
+
+
+def _offset_distance(offsets, known) -> float:
+    """The norm of offsets - known over every W leaf (geo and app)."""
+    return math.sqrt(sum(float(((o - k) ** 2).sum()) for br in known
+                         for o, k in zip(offsets[br], known[br])))
+
+
+def _device_groups(fn, names, iters=3) -> dict:
+    """Device ms per call of fn: each named kernel's, the rest, and the
+    total (torch.profiler's CUDA kernel records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k in (*names, "other", "total")}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / iters / 1e3
+        out[next((k for k in names if k in evt.key), "other")] += ms
+        out["total"] += ms
+    return out
+
 
 # the ceiling-probe scripts, the slice's entry points (scripts/)
 PROBE_SCRIPTS = ("profile_torch_mxu_chain", "profile_torch_epilogue_overlap",
@@ -1426,11 +1881,24 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_checkpoint(dev, tmp)
         serve = {ray: phase_serve(ckpt, ray) for ray in ("never", "auto")}
-    log(f"[serve] batch-1 ms/request, ray kernels off / on: "
-        f"{serve['never']['ms_per_request']:.1f} / "
-        f"{serve['auto']['ms_per_request']:.1f}")
+        log(f"[serve] batch-1 ms/request, ray kernels off / on: "
+            f"{serve['never']['ms_per_request']:.1f} / "
+            f"{serve['auto']['ms_per_request']:.1f}")
+        t0 = time.perf_counter()
+        multiview = phase_multiview(ckpt, tmp, dev)
+        shapes = phase_shapes(ckpt, tmp)
+        inverted = phase_invert(write_checkpoint(
+            dev, tmp, INVERT_SIGMA_BIAS, INVERT_HEAD_GAIN,
+            "generator_invert.npz"), tmp, dev)
+        log(f"[apps] multiview, shapes and invert in "
+            f"{time.perf_counter() - t0:.1f} s")
     phase_render(dev)
     bwd = phase_backward(dev)
+    # the backward at invert's shape (phase 5c) beside phase 7's shapes
+    shapes = bwd["shapes"] + [inverted["bwd"]]
+    bwd = {**bwd, "max_abs_err": max(x["max_abs_err"] for x in shapes),
+           "max_rel_err": max(x["max_rel_err"] for x in shapes),
+           "min_cos": min(x["min_cos"] for x in shapes), "shapes": shapes}
     train_off, trained = phase_train(dev, ray_on=False)
     train_on, _ = phase_train(dev, ray_on=True)
     log(f"[train] ms/step, ray kernels off / on: "
@@ -1441,14 +1909,17 @@ def main() -> int:
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f} s")
 
     def launches(name):
-        """Launches on the main paths: serving (both ray routes) and
-        training (ray kernels off and on)."""
+        """Launches on the main paths: serving (both ray routes), training
+        (ray kernels off and on), multiview sheets (both ray routes) and
+        the inversion (with its warm start)."""
         by_path = {"serve": sum(r["launches"][name] for r in serve.values()),
                    "train": (train_off["launches"][name]
-                             + train_on["launches"][name])}
+                             + train_on["launches"][name]),
+                   "multiview": sum(r[name] for r in
+                                    multiview["launches"].values()),
+                   "invert": inverted["launches"][name]}
         return {"launches": sum(by_path.values()),
-                "launches_serve": by_path["serve"],
-                "launches_train": by_path["train"]}
+                **{f"launches_{k}": v for k, v in by_path.items()}}
 
     src = "fenerf_tpu_torch/ops/csrc/"
 

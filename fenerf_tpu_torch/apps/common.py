@@ -79,7 +79,8 @@ def load_generator(path: str, device="cuda"):
         return tree("params"), tree("ema"), tree("ema2"), cfg, config
 
 
-def best_backend(cfg: Any, device) -> str:
-    """Backend the inference apps render with: the fused kernel on CUDA
-    for covered variants (ops/film_mlp.py::backend_for), else 'torch'."""
-    return film_mlp.backend_for(cfg, device)
+def best_backend(cfg: Any, device, train: bool = False) -> str:
+    """Backend the apps render with: the fused kernel on CUDA for covered
+    variants, 'kernel_train' (fused forward and backward) with train=True
+    (ops/film_mlp.py::backend_for), else 'torch'."""
+    return film_mlp.backend_for(cfg, device, train)

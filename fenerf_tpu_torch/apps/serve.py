@@ -11,8 +11,8 @@ table and the fused kernel's operands once, then answers HTTP requests:
 
 Device work is serialized with a lock; --batch N > 1 instead queues
 concurrent requests and renders up to N of them in one batch (per-request
-camera and psi). PNGs are encoded with a stdlib zlib writer. kind=depth
-needs cv2; without it the request is a 400 and the server stays up.
+camera and psi). PNGs are encoded with a stdlib zlib writer
+(utils/image.py::encode_png).
 
 Usage:
   python -m fenerf_tpu_torch.apps.serve --ckpt output/run/generator.npz \
@@ -23,15 +23,15 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import struct
 import threading
 import time
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
+
+from fenerf_tpu_torch.utils.image import encode_png
 
 _PAGE = """<!doctype html>
 <html><head><title>FENeRF render server</title><style>
@@ -193,25 +193,6 @@ def _make_batcher(render_many, fcfg, batch: int, wait_ms: float):
         return slot["out"]
 
     return render_np
-
-
-def encode_png(img: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 -> PNG bytes (8-bit RGB, no filtering, zlib)."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    h, w, c = img.shape
-    if c != 3:
-        raise ValueError(f"encode_png takes (H, W, 3) images, got {img.shape}")
-    raw = np.zeros((h, 1 + w * 3), np.uint8)  # filter byte 0 per scanline
-    raw[:, 1:] = img.reshape(h, w * 3)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + chunk(b"IEND", b""))
 
 
 def make_server(render_np, meta, port: int = 8798, host: str = "127.0.0.1"):

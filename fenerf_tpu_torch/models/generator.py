@@ -1,6 +1,7 @@
 """The volumetric generator for the FiLM-SIREN family (port of
 fenerf_tpu/models/generator.py: render_core, render, render_from_z,
-render_any, render_truncated).
+render_any, render_truncated, and the shape extraction's voxel_points and
+eval_volume).
 
 Pipeline: ray grid -> stratified jitter -> camera -> cam2world -> coarse
 field eval -> proposal weights -> sample_pdf -> fine field eval ->
@@ -24,6 +25,7 @@ import dataclasses
 import os
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
@@ -384,3 +386,55 @@ def render_truncated(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,
     return render(params, fcfg, rcfg, film_geo, film_app,
                   batch_size=z_geo.shape[0], noise_std=noise_std,
                   camera=camera, generator=generator, draws=draws)
+
+
+# ---------------------------------------------------------------------------
+# Shape extraction: evaluate sigma (+labels) on a voxel lattice
+# ---------------------------------------------------------------------------
+
+def voxel_points(resolution: int, cube_length: float = 0.3,
+                 device="cpu") -> torch.Tensor:
+    """Reference create_samples (extract_double_semantic_shapes.py:13-35):
+    a resolution^3 lattice spanning cube_length, centered at the origin.
+    Returns (resolution^3, 3) with x fastest (matching the .mrc reshape).
+
+    The side is jnp.linspace(-0.5, 0.5, n) in f32 as XLA computes it:
+    t_i = i * f32(1 / (n - 1)), then -0.5 (1 - t_i) + i * (0.5 f32(1 / (n - 1)))
+    with the last product added at one rounding (a fused multiply-add)."""
+    f32 = np.float32
+    div = resolution - 1
+    i = np.arange(div, dtype=f32)
+    rc = f32(1.0) / f32(div)
+    a = f32(-0.5) * (f32(1.0) - i * rc)
+    fused = a.astype(np.float64) + i.astype(np.float64) * float(f32(0.5) * rc)
+    side = np.append(fused.astype(f32), f32(0.5)) * f32(cube_length)
+    side = torch.from_numpy(side).to(device)
+    zz, yy, xx = torch.meshgrid(side, side, side, indexing="ij")
+    return torch.stack([xx.reshape(-1), yy.reshape(-1), zz.reshape(-1)],
+                       dim=-1)
+
+
+@torch.no_grad()
+def eval_volume(params, fcfg: fields.FieldConfig, film_geo, film_app,
+                points: torch.Tensor, chunk: int = 262144,
+                compute_dtype=torch.float32) -> torch.Tensor:
+    """Field outputs over a point cloud (N, 3) with a locked view direction
+    (0, 0, -1) (reference extract_double_semantic_shapes.py:57-61), in
+    blocks of `chunk` points (the last padded with zeros). Takes the torch
+    route, as the JAX function takes XLA's. Returns (N, output_dim)."""
+    n = points.shape[0]
+    pad = (-n) % chunk
+    pts = torch.cat([points, points.new_zeros(pad, 3)]) if pad else points
+    # texture table once, outside the chunk loop
+    params = fields.with_grid_table(
+        params, fcfg,
+        torch.bfloat16 if compute_dtype == torch.bfloat16 else None)
+    out = []
+    for i in range(0, pts.shape[0], chunk):
+        p = pts[i:i + chunk]
+        d = torch.zeros_like(p)
+        d[..., -1] = -1.0
+        out.append(fields.apply_field(
+            params, fcfg, p[None], d[None], film_geo, film_app,
+            compute_dtype=compute_dtype)[0])
+    return torch.cat(out)[:n]

@@ -90,14 +90,28 @@ class StepDraws(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """Adam (eps 1e-8) after a global-norm clip written as optax's (scale
-    by max_norm / norm only when norm >= max_norm) and, when set, weight
-    decay added to the clipped gradient. `lr_mult` scales the learning
-    rate of top-level parameter groups (the mapping networks)."""
+    by max_norm / norm only when norm >= max_norm; max_norm None: no clip)
+    and, when set, weight decay added to the clipped gradient. `lr_mult`
+    scales the learning rate of top-level parameter groups (the mapping
+    networks). `lr_decay` = (transition_steps, rate) is optax's staircase
+    exponential_decay: update i (counted from 0) takes
+    lr * rate ** (i // transition_steps)."""
     lr: float
     betas: tuple
-    max_norm: float
+    max_norm: float | None
     weight_decay: float = 0.0
     lr_mult: tuple = ()          # ((top-level key, multiplier), ...)
+    lr_decay: tuple = ()         # (transition_steps, rate), or () for none
+
+    def lr_at(self, count: int) -> float:
+        """The learning rate of the update made at `count` (the count
+        before the increment); a decayed one in f32, as optax's schedule
+        computes it."""
+        if not self.lr_decay:
+            return self.lr
+        f32 = np.float32
+        steps, rate = self.lr_decay
+        return float(f32(self.lr) * f32(rate) ** f32(count // steps))
 
     def init(self, params: Params) -> AdamState:
         zeros = lambda t: torch.zeros_like(t, dtype=torch.float32)
@@ -107,16 +121,19 @@ class Optimizer:
     def step(self, params: Params, grads: Params,
              state: AdamState) -> AdamState:
         """Update `params` and the moments in place; returns the state."""
-        gl = tree_leaves(grads)
-        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gl))
-        clip = bool(norm >= self.max_norm)
+        clip = False
+        if self.max_norm is not None:
+            gl = tree_leaves(grads)
+            norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gl))
+            clip = bool(norm >= self.max_norm)
+        base = self.lr_at(state.count)
         count = state.count + 1
         f32 = np.float32
         b1, b2 = self.betas
         c1 = float(f32(1.0) - f32(b1) ** count)
         c2 = float(f32(1.0) - f32(b2) ** count)
         mult = dict(self.lr_mult)
-        groups = {k: self.lr * mult.get(k, 1.0) for k in params}
+        groups = {k: base * mult.get(k, 1.0) for k in params}
         for key in params:
             lr = float(f32(groups[key]))
             for p, g, m, v in zip(tree_leaves(params[key]),

@@ -162,6 +162,39 @@ class TestServe:
         np.testing.assert_array_equal(_png_pixels(tserve.encode_png(img)),
                                       img)
 
+    def test_png_writer_bytes(self):
+        """The writer's RGB layout, byte for byte: signature, IHDR (8-bit
+        RGB), one IDAT of filter-0 scanlines at zlib level 6, IEND."""
+        import struct
+
+        img = np.random.default_rng(1).integers(0, 256, (6, 9, 3), np.uint8)
+
+        def chunk(tag, data):
+            return (struct.pack(">I", len(data)) + tag + data
+                    + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+        raw = b"".join(b"\x00" + row.tobytes() for row in img)
+        want = (b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", 9, 6, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+        assert tserve.encode_png(img) == want
+
+    def test_depth_jet_equals_cv2(self):
+        """The jet table is cv2.COLORMAP_JET's, bit for bit: all 256 levels
+        and a random depth map through depth_to_jet."""
+        import cv2
+
+        from fenerf_tpu_torch.utils.image import JET, depth_to_jet
+
+        levels = np.arange(256, dtype=np.uint8)[:, None]
+        ref = cv2.applyColorMap(levels, cv2.COLORMAP_JET)[:, 0, ::-1]
+        np.testing.assert_array_equal(JET, ref)
+        depth = np.random.default_rng(2).uniform(0.85, 1.15, (33, 47))
+        d = np.clip((depth - 0.88) / 0.24, 0, 1)
+        ref = cv2.applyColorMap((d * 255).astype(np.uint8),
+                                cv2.COLORMAP_JET)[..., ::-1]
+        np.testing.assert_array_equal(depth_to_jet(depth), ref)
+
     def test_cuda_device_raises_without_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -187,12 +220,7 @@ class TestServe:
             assert json.loads(get("/meta").read())["image_size"] == 16
             assert get("/").read().startswith(b"<!doctype html>")
             for kind in ("rgb", "seg", "depth"):
-                try:
-                    r = get(f"/render?seed=3&yaw=0.2&psi=0.5&kind={kind}")
-                except urllib.error.HTTPError as e:
-                    if kind == "depth" and e.code == 400:
-                        continue  # cv2 absent -> 400, server stays alive
-                    raise
+                r = get(f"/render?seed=3&yaw=0.2&psi=0.5&kind={kind}")
                 body = r.read()
                 assert _png_pixels(body).shape == (16, 16, 3), kind
                 assert float(r.headers["X-Render-Ms"]) > 0

@@ -113,5 +113,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "fenerf_tpu", "optax",
-                                  "flax")]
+                                  "flax", "PIL", "cv2")]
     assert not bad, bad

@@ -31,6 +31,8 @@ def device():
 
 @pytest.mark.parametrize("name,kw,b,n", [
     (FLAGSHIP, dict(grid_resolution=16), 1, 4096 * 4),     # full width
+    # a block of the inversion's eval render: ray_chunk 8192 x 48 samples
+    (FLAGSHIP, dict(grid_resolution=16), 1, 8192 * 48),
     (FLAGSHIP, dict(grid_resolution=16), 3, 1001),         # ragged tiles
     (FLAGSHIP, dict(grid_resolution=16), 3, 200),          # tiles straddle
     (FLAGSHIP, dict(grid_resolution=16), 1, 37),           # < 64 rows
@@ -95,6 +97,8 @@ def test_wrapper_rejects_bad_input(device):
 
 @pytest.mark.parametrize("name,kw,b,n", [
     (FLAGSHIP, dict(grid_resolution=16), 2, 4096),         # full width
+    # an inversion step: B=1, 128^2 x 24 samples
+    (FLAGSHIP, dict(grid_resolution=16), 1, 128 * 128 * 24),
     (FLAGSHIP, dict(grid_resolution=16), 3, 1001),         # ragged tiles
     (FLAGSHIP, dict(grid_resolution=16), 3, 200),          # ragged, 2 tiles
     (FLAGSHIP, dict(grid_resolution=16), 1, 37),           # < 64 rows
