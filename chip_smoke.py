@@ -7,7 +7,10 @@ TextureEmbeddingPiGAN256SEMANTICDISENTANGLE_DIM_96 with random weights from
 a seed: serving (fenerf_tpu_torch.apps.serve) through the hand-written CUDA
 field kernel (ops/csrc/film_mlp.cu); the editing workflow's entry points
 (apps.render_multiview, apps.extract_shapes, apps.invert) through it and
-the backward kernels; and GAN training
+the backward kernels; free-viewpoint video (apps.render_video) of the film
+family through it and of the latent-grid family SPATIALSIRENGRID, at its
+published widths, through the ray kernels, and the grid family's
+multiview, shape and serving paths; and GAN training
 (fenerf_tpu_torch.train.loop) through it and the hand-written backward
 kernels (ops/csrc/film_mlp_bwd.cu) and the table-fold kernel
 (ops/csrc/zexp_fold.cu); and both again with the switch of the fused per-ray
@@ -39,15 +42,19 @@ Phases (any failure exits non-zero):
      an eval render's block of 8192 rays x 48), max |diff| and the
      time of each side, and as context_ms the same bf16 products through
      torch.matmul (the product path's yardstick);
-  3. the ray kernels against their plain versions at the serving block
-     (B=1, R=4096, 48+48 samples, no noise), the training microbatch
-     (B=6, R=1024, 24+24, sigma noise), a ragged shape and a block of
-     invert's eval render (B=1, R=8192, 48+48, no noise): fine z, comp,
-     depth, weights_sum; kernel (CUDA events around the wrapper; the
-     kernel's device time in the profiler; the wrapper's host time per
-     call), plain and torch-route times; and
-     ray_finalize_vjp's cotangents against the torch route's autograd at
-     the training shape;
+  3. the ray kernels against their plain versions at every block a main
+     path gives them (RAY_CHECK_SHAPES): the serving block (B=1, R=4096,
+     48+48 samples, no noise), the training microbatch (B=6, R=1024,
+     24+24, sigma noise), a ragged shape, a block of invert's eval render
+     (B=1, R=8192, 48+48), render_video's film block (B=1, R=4096, 24+24,
+     C=22) and the grid family's video and sheet blocks (C=4 outputs,
+     24+24 and 48+48), each without a fill (as the render hands them) and,
+     where its path fills, with the path's fill in the epilogue (seg
+     padding, white background); no softmax: fine z, comp, depth,
+     weights_sum; kernel (CUDA events around the wrapper; the kernel's
+     device time in the profiler; the wrapper's host time per call),
+     plain and torch-route times; and ray_finalize_vjp's cotangents
+     against the torch route's autograd at the training shape;
   4. the fold kernel against its plain version at the flagship grid
      (32 x 96^3) with an f32 and a bf16 cotangent: relative error, bitwise
      equality, times; and the library call that computes the same fold
@@ -65,9 +72,10 @@ Phases (any failure exits non-zero):
         the ray kernels against the torch ray route and of the field
         kernel against the field's torch route at bf16 (phase 6's 2e-2);
      b. extract_shapes at 256^3 (the field's torch route in f32, as the
-        JAX package's XLA route) with --export_ply: the .mrc read back
-        (shape, finite), a non-empty mesh inside the cube at an iso level
-        inside the volume's range, seconds for the volume and the mesh;
+        JAX package's XLA route; no kernel launched): the .mrc read back
+        (shape, finite), a non-empty mesh of it inside the cube at an iso
+        level inside the volume's range (the CLI's mesher), seconds for
+        the volume and the mesh;
      c. invert at 128^2 x 24 steps, 60 iterations, eval every 20, ray
         kernels on, --lambda_norm 0, on the same weights with sigma bias
         +5, against the port's own render (PNG pair) at the CLI's init W
@@ -80,7 +88,25 @@ Phases (any failure exits non-zero):
         the backward kernels against their plain version at this path's
         shape (B=1, 393,216 rows); one step's loss, kernel route against
         the torch route (bf16, held), and its offset gradients (cosine,
-        printed only); ms per iteration and per eval render;
+        printed only); ms per iteration and per eval render; the warm
+        start renders its reconstruction video (--render_video, 3 frames
+        at the eval render's settings) and the .avi is read back;
+     d. render_video on a full-width SPATIALSIRENGRID checkpoint (random
+        weights, seed 3, sigma bias +20) at its defaults (128^2, 24+24
+        steps, 36 frames, front, geo), once per ray route: the .avi read
+        back equal to the frames, ms per frame, the launches (4 of each ray
+        kernel per frame with the switch on, no field kernel); the kernel
+        route's frames against the torch route's (RENDER_TOL); the CLI's
+        first frame (ray_chunk 4096) against the same frame rendered whole,
+        bit-exact, on each route;
+     e. render_video on the serving checkpoint at its defaults, the field
+        kernel and the ray kernels on: ms per frame and launches; its
+        first, middle and last frames against the same frames on the
+        field's and the rays' torch routes at bf16 (RENDER_TOL), rendered
+        with the CLI's settings, films, draws and cameras;
+     f. the grid checkpoint's other paths: a render_multiview sheet at its
+        defaults (ray kernels on), extract_shapes at 256^3 with a mesh (as
+        b.), and a request through serve (the torch route, no kernel);
   6. one whole render through the field kernel against the same render
      through its plain version; the ray kernels' render against the torch
      route's; ray-chunked against whole-image rendering on both routes;
@@ -114,8 +140,9 @@ Phases (any failure exits non-zero):
      each time's share of the bound; for the chains, the same torch.matmul
      calls in a row, printed as context).
 
-Prints the card line, a JSON line of per-kernel results and, last,
-{"ok": true, "device": {...}}. Exits non-zero without CUDA.
+Prints each phase's seconds, the card line, a JSON line of per-kernel
+results and, last, {"ok": true, "device": {...}}. Exits non-zero without
+CUDA.
 """
 from __future__ import annotations
 
@@ -216,14 +243,23 @@ def phase_sass(build):
     import subprocess
 
     cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
-    for lib in dict.fromkeys((*HOPPER_KERNELS, *WMMA_KERNELS,
-                              *BULK_KERNELS, *RING_KERNELS)):
-        so = str(build._so_path(lib))
-        usage = subprocess.run([cuobjdump, "--dump-resource-usage", so],
-                               capture_output=True, text=True,
-                               check=True).stdout
-        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
-                              text=True, check=True).stdout
+    libs = list(dict.fromkeys((*HOPPER_KERNELS, *WMMA_KERNELS,
+                               *BULK_KERNELS, *RING_KERNELS)))
+
+    def dump(lib_flag):
+        lib, flag = lib_flag
+        return subprocess.run([cuobjdump, flag, str(build._so_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+
+    # every dump at once (one cuobjdump each), then the checks in order
+    jobs = [(lib, flag) for lib in libs
+            for flag in ("--dump-resource-usage", "-sass")]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        dumps = dict(zip(jobs, pool.map(dump, jobs)))
+    for lib in libs:
+        usage = dumps[lib, "--dump-resource-usage"]
+        sass = dumps[lib, "-sass"]
         regs = {}
         name = None
         for line in usage.splitlines():
@@ -303,9 +339,9 @@ def _flagship_params(dev, seed=0, sigma_bias=SIGMA_BIAS):
 # two whose every tile touches three or more batch elements (the FiLM rows
 # read from device memory, not from the staged tables), and invert's (a
 # step's render, B=1, N=128^2 x 24 steps; also an eval render's block of
-# 8192 rays x 48 steps)
+# 8192 rays x 48 steps), and render_video's block (4096 rays x 24 steps)
 FWD_SHAPES = ((1, 4096 * 48), (4, 12345), (2, 20000), (6, 32 * 32 * 24),
-              (3, 37), (5, 20), (1, 128 * 128 * 24))
+              (3, 37), (5, 20), (1, 128 * 128 * 24), (1, 4096 * 24))
 
 
 def phase_kernel(dev) -> dict:
@@ -474,10 +510,26 @@ FOLD_TOL = 1e-6
 # the library's conv3d vs the plain fold, relative: the same eight terms
 # (and zeros) in the order of the algorithm cuDNN picks, f32 with TF32 off
 LIBRARY_FOLD_TOL = 1e-5
-# (the shapes, RAY_SHAPES, and the draws are ops/probes.py's, shared with
-# scripts/profile_torch_ray_kernels.py; here also one 8192-ray block of
-# invert's 256^2 eval render at 48 + 48 steps, without sigma noise)
-RAY_CHECK_SHAPES = RAY_SHAPES + (("invert eval", 1, 8192, 48, False),)
+# Every block a main path gives the ray kernels, (label, B, R, S, sigma
+# noise, field outputs C, fills): RAY_SHAPES (ops/probes.py's, shared with
+# scripts/profile_torch_ray_kernels.py, as are the draws); one 8192-ray
+# block of invert's 256^2 eval render at 48 + 48 steps; render_video's
+# 4096-ray block at its defaults (24 + 24) for the film family, and the
+# grid family's (C = 4: rgb, sigma) in video and in a render_multiview
+# sheet (48 + 48). The render hands the kernel no fill (fill_mode None:
+# render_core fills the assembled image once), so each block is held
+# without one (the timed case) and, where its path fills, also with the
+# path's fill in the kernel's epilogue: seg padding (code 1), white
+# background (code 2).
+RAY_CHECK_SHAPES = (
+    (*RAY_SHAPES[0], N_OUT, (None, "seg_padding_background")),
+    *((*shape, N_OUT, (None,)) for shape in RAY_SHAPES[1:]),
+    ("invert eval", 1, 8192, 48, False, N_OUT,
+     (None, "eval_seg_padding_background")),
+    ("film video", 1, 4096, 24, False, N_OUT,
+     (None, "eval_seg_padding_background")),
+    ("grid video", 1, 4096, 24, False, 4, (None, "eval_white_back")),
+    ("grid sheet", 1, 4096, 48, False, 4, (None, "eval_white_back")))
 
 
 def _device_ms(fn, kernel: str) -> float | None:
@@ -502,21 +554,29 @@ def phase_ray(dev) -> tuple[dict, dict]:
 
     gen = torch.Generator(device=dev).manual_seed(4)
     rows_rs, rows_fin = [], []
-    for label, b, r, s, noisy in RAY_CHECK_SHAPES:
-        z, sigma, outputs = ray_inputs(gen, dev, b, r, s)
+    for label, b, r, s, noisy, c1, fills in RAY_CHECK_SHAPES:
+        z, sigma, outputs = ray_inputs(gen, dev, b, r, s, c1)
         randn = lambda n: torch.randn(b, r, n, generator=gen, device=dev)
         nz_c, nz_f = (randn(s), randn(2 * s)) if noisy else (None, None)
         u = torch.rand(b, r, s, generator=gen, device=dev)
         fo, co = outputs(s), outputs(s)
         fz = rf.ray_resample(sigma, z, nz_c, u)
         fz_ref = rf.ray_resample_reference(sigma, z, nz_c, u)
-        fin = rf.ray_finalize(fo, co, fz, z, nz_f)
-        fin_ref = rf.ray_finalize_reference(fo, co, fz, z, nz_f)
-        torch.cuda.synchronize()
-        if not all(torch.isfinite(t).all() for t in (fz, *fin)):
-            raise AssertionError(f"ray kernels: non-finite output ({label})")
+        if not torch.isfinite(fz).all():
+            raise AssertionError(f"ray_resample: non-finite output ({label})")
         err_z = (fz - fz_ref).abs().max().item()
-        errs = [(a - p).abs().max().item() for a, p in zip(fin, fin_ref)]
+        errs = {}   # per fill: max |kernel - plain| of comp, depth, wsum
+        for fill in fills:
+            fin = rf.ray_finalize(fo, co, fz, z, nz_f, fill_mode=fill)
+            fin_ref = rf.ray_finalize_reference(fo, co, fz, z, nz_f,
+                                                fill_mode=fill)
+            if fin[0].shape != (b, r, rf.filled_channels(c1 - 1, fill)) \
+                    or not all(torch.isfinite(t).all() for t in fin):
+                raise AssertionError(f"ray_finalize: bad output {label}, "
+                                     f"fill {fill}: {fin[0].shape}")
+            errs[fill] = [(a - p).abs().max().item()
+                          for a, p in zip(fin, fin_ref)]
+        del fin, fin_ref
 
         def torch_resample():
             w = integ.integrate_weights(sigma, z, noise=nz_c, noise_std=1.0)
@@ -543,10 +603,12 @@ def phase_ray(dev) -> tuple[dict, dict]:
               "torch_route_ms": time_ms(lambda: integ.composite_merged_nosort(
                   fo, co, fz, z, noise=nz_f, noise_std=1.0), 5)}
         (rs["bound_ms"], rs["bound_by"]), (fn["bound_ms"], fn["bound_by"]) = \
-            ray_bounds(b, r, s, noisy)
-        log(f"[ray] {label} B={b} R={r} S={s}+{s} noise={noisy}: "
-            f"max|kernel-plain| fine z {err_z:.3e}, comp {errs[0]:.3e}, "
-            f"depth {errs[1]:.3e}, weights_sum {errs[2]:.3e} (tol {RAY_TOL})")
+            ray_bounds(b, r, s, noisy, c1)
+        log(f"[ray] {label} B={b} R={r} S={s}+{s} C={c1} noise={noisy}: "
+            f"max|kernel-plain| fine z {err_z:.3e}; " + "; ".join(
+                f"fill {fill}: comp {e[0]:.3e}, depth {e[1]:.3e}, "
+                f"weights_sum {e[2]:.3e}" for fill, e in errs.items())
+            + f" (tol {RAY_TOL})")
         for name, d in (("ray_resample", rs), ("ray_finalize", fn)):
             dev_ms = d["device_ms"]
             device = ("device not measured" if dev_ms is None else
@@ -557,13 +619,15 @@ def phase_ray(dev) -> tuple[dict, dict]:
                 f"{d['plain_ms']:.4f} ms, torch route "
                 f"{d['torch_route_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
                 f"({d['bound_by']})")
-        if not max(err_z, *errs) <= RAY_TOL:
+        err_fin = max(max(e) for e in errs.values())
+        if not max(err_z, err_fin) <= RAY_TOL:
             raise AssertionError(f"ray kernels disagree with plain ({label})")
-        rows_rs.append({"shape": label, "B": b, "R": r, "S": s,
+        rows_rs.append({"shape": label, "B": b, "R": r, "S": s, "C": c1,
                         "max_abs_err": err_z, **rs})
         rows_fin.append({"shape": label, "B": b, "R": r, "S": 2 * s,
-                         "max_abs_err": max(errs), **fn})
-        del fo, co, fin, fin_ref
+                         "C": c1, "fills": list(fills),
+                         "max_abs_err": err_fin, **fn})
+        del fo, co
 
     # the VJP at the training shape: kernel forward, torch-route backward,
     # against autograd through the torch route itself (noise_std 0.7)
@@ -1213,6 +1277,7 @@ INVERT = ["--image_size", str(INVERT_SIZE), "--num_steps", "24",
 # pi-GAN's small head init, so that colour and labels depend on W (on the
 # serving checkpoint a W offset of 0.1 moves the objective by ~1e-6 of
 # its 0.1989)
+INVERT_VIDEO_FRAMES = 3   # the warm start's --render_video
 INVERT_SIGMA_BIAS = 5.0
 INVERT_HEAD_GAIN = 25.0
 # the target: the CLI's own init W (init_seed 0, init_psi 0) plus this
@@ -1331,38 +1396,51 @@ def _ply_vertices(path):
     return verts, n_f
 
 
-def phase_shapes(ckpt, tmp) -> dict:
-    """extract_shapes at the default 256^3 lattice with --export_ply: the
-    .mrc read back (shape, finite), a mesh at an iso level inside the
-    volume's range (the 99.9th percentile of a 64^3 lattice of the same
-    field), its vertices inside the cube; seconds for the volume and the
-    mesh. The lattice takes the torch route in f32 (no kernel), as the
-    JAX package's takes XLA's."""
+SHAPES_CUBE = 0.3   # extract_shapes' defaults: a 256^3 lattice over a
+SHAPES_RES = 256    # 0.3 cube
+
+
+def phase_shapes(ckpt, tmp, tag="shapes") -> dict:
+    """extract_shapes at its default lattice: the .mrc read back (shape,
+    finite), no kernel launched and no plain version called (the lattice
+    takes the field's torch route in f32, as the JAX package's takes
+    XLA's); a mesh of that volume through the CLI's mesher
+    (utils/marching.py::marching_cubes, write_ply, as --export_ply runs
+    them) at an iso level inside its range (its 99.9th percentile),
+    non-empty, its vertices inside the cube; seconds for the volume and
+    the mesh."""
     from fenerf_tpu_torch.apps import extract_shapes
+    from fenerf_tpu_torch.utils.marching import marching_cubes, write_ply
     from fenerf_tpu_torch.utils.mrc import read_mrc
 
-    d = os.path.join(tmp, "shapes")
-    extract_shapes.main(["--ckpt", ckpt, "--seeds", "7", "--output_dir",
-                         d + "_64", "--voxel_resolution", "64"])
-    iso = float(np.quantile(read_mrc(os.path.join(d + "_64",
-                                                  "shape_seed7.mrc")), 0.999))
+    d = os.path.join(tmp, tag.replace(" ", "_"))
     zero_counts()
-    (timing,) = extract_shapes.main([
-        "--ckpt", ckpt, "--seeds", "7", "--output_dir", d,
-        "--export_ply", "--iso_level", f"{iso:.6f}"])
+    (timing,) = extract_shapes.main(["--ckpt", ckpt, "--seeds", "7",
+                                     "--output_dir", d])
     launches, plain = read_counts()
     vol = read_mrc(os.path.join(d, "shape_seed7.mrc"))
-    verts, n_faces = _ply_vertices(os.path.join(d, "shape_seed7.ply"))
-    log(f"[shapes] 256^3 volume {timing['volume_s']:.2f} s, mesh "
+    if vol.shape != (SHAPES_RES,) * 3 or not np.isfinite(vol).all():
+        raise AssertionError(f"[{tag}] bad volume {vol.shape}")
+    if any(launches.values()) or plain:
+        raise AssertionError(f"[{tag}] the lattice left its torch route: "
+                             f"{launches}, plain calls {plain}")
+    iso = float(np.quantile(vol, 0.999))
+    vox = SHAPES_CUBE / SHAPES_RES
+    t0 = time.perf_counter()
+    verts, faces = marching_cubes(vol, level=iso, spacing=(vox,) * 3,
+                                  origin=(-SHAPES_CUBE / 2,) * 3)
+    ply = os.path.join(d, "shape_seed7.ply")
+    write_ply(ply, verts, faces)
+    timing["mesh_s"] = time.perf_counter() - t0
+    verts, n_faces = _ply_vertices(ply)
+    log(f"[{tag}] {SHAPES_RES}^3 volume {timing['volume_s']:.2f} s, mesh "
         f"{timing['mesh_s']:.2f} s ({len(verts)} vertices, {n_faces} faces "
-        f"at iso {iso:.4f}); sigma in [{vol.min():.3f}, {vol.max():.3f}]; "
-        f"launches {launches}, plain calls {plain}")
-    if vol.shape != (256, 256, 256) or not np.isfinite(vol).all():
-        raise AssertionError(f"bad volume {vol.shape}")
+        f"at iso {iso:.4f}); sigma in [{vol.min():.3f}, {vol.max():.3f}]")
     if not (vol.min() < iso < vol.max() and len(verts) > 0 and n_faces > 0):
-        raise AssertionError("empty mesh")
-    if np.abs(verts).max() > 0.15 + 1e-6:
-        raise AssertionError(f"mesh leaves the cube: {np.abs(verts).max()}")
+        raise AssertionError(f"[{tag}] empty mesh")
+    if np.abs(verts).max() > SHAPES_CUBE / 2 + 1e-6:
+        raise AssertionError(f"[{tag}] mesh leaves the cube: "
+                             f"{np.abs(verts).max()}")
     return timing
 
 
@@ -1422,7 +1500,9 @@ def phase_invert(ckpt, tmp, dev) -> dict:
         warm = invert.main(["warm", *common, *INVERT[:4],
                             "--iterations", "1", "--lambda_seg", "1",
                             "--lambda_img", "1", "--load_offsets", res.path,
-                            "--save_dir", os.path.join(tmp, "inv2")])
+                            "--save_dir", os.path.join(tmp, "inv2"),
+                            "--render_video", "--num_frames",
+                            str(INVERT_VIDEO_FRAMES)])
         launches, plain = read_counts()
     log(f"[invert] {len(res.losses)} iterations: loss {res.losses[0]:.5f} "
         f"-> {res.losses[-1]:.5f}, mIoU {np.round(res.mious, 4).tolist()}; "
@@ -1440,9 +1520,15 @@ def phase_invert(ckpt, tmp, dev) -> dict:
         raise AssertionError("mious.npy does not hold 3 entries")
     if not same:
         raise AssertionError("the warm start did not keep the prior W")
+    from fenerf_tpu_torch.utils.video import read_avi
+
+    frames, _ = read_avi(warm.video)
+    log(f"[invert] --render_video: {warm.video} holds {frames.shape}")
+    if frames.shape != (INVERT_VIDEO_FRAMES, 256, 3 * 256, 3):
+        raise AssertionError(f"bad reconstruction video {frames.shape}")
     # per run: a forward and a backward per iteration; per eval render
-    # 8 ray blocks of 8192, two field evaluations each
-    evals = 3 + 1
+    # and per video frame 8 ray blocks of 8192, two field evaluations each
+    evals = 3 + 1 + INVERT_VIDEO_FRAMES
     want = {"film_mlp": 61 + evals * 16, "film_mlp_bwd": 61,
             "ray_resample": evals * 8, "ray_finalize": evals * 8}
     if any(launches[k] != v for k, v in want.items()) or plain != 0:
@@ -1863,6 +1949,244 @@ def phase_probes(dev, results: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# config 4: free-viewpoint video, and the latent-grid family's other paths
+# ---------------------------------------------------------------------------
+
+GRID = "SPATIALSIRENGRID"   # published widths: z 256, hidden 256, 8 trunk
+                            # layers, a 32 x 32 x 32 plane, ch_max 256
+VIDEO_FRAMES = 36           # render_video's defaults: 128^2, 24 + 24
+VIDEO_BLOCKS = 128 * 128 // 4096   # steps, ray_chunk 4096
+# the film video's frames held to the torch routes: both ends and one
+# interpolated between them
+VIDEO_REF_FRAMES = (0, VIDEO_FRAMES // 2, VIDEO_FRAMES - 1)
+VIDEO_SIZE = 128
+def write_grid_checkpoint(dev, tmp) -> str:
+    """SPATIALSIRENGRID at its published widths, random weights (seed 3),
+    the sigma head's bias raised by SIGMA_BIAS (an opaque volume), as a
+    generator .npz of the grid family."""
+    from fenerf_tpu_torch.apps.common import save_generator
+    from fenerf_tpu_torch.nn import latent_grid_field as lgf
+
+    cfg = lgf.get_grid_config(GRID)
+    params = lgf.init_grid_field(torch.Generator(device=dev).manual_seed(3),
+                                 cfg, device=dev)
+    params["sigma_head"]["b"] = params["sigma_head"]["b"] + SIGMA_BIAS
+    ckpt = os.path.join(tmp, "generator_grid.npz")
+    save_generator(ckpt, params, params, params, GRID, step=0)
+    log(f"[grid] wrote {GRID} checkpoint (z {cfg.z_dim}, hidden "
+        f"{cfg.hidden_dim}, {cfg.trunk_layers} trunk layers, plane "
+        f"{cfg.grid_ch} x {cfg.grid_res}^2, ch_max {cfg.ch_max}), sigma "
+        f"bias {SIGMA_BIAS:+g} ({os.path.getsize(ckpt) / 2**20:.0f} MiB)")
+    return ckpt
+
+
+def _check_video(video, size, channels, panels, tag):
+    """The .avi read back equals the frames written; shapes; finite."""
+    from fenerf_tpu_torch.utils.video import read_avi
+
+    frames, fps = read_avi(video.path)
+    if not (frames.shape == (VIDEO_FRAMES, size, panels * size, 3)
+            and fps == 12.0 and np.array_equal(frames, video.frames)):
+        raise AssertionError(f"{tag}: {video.path} reads back "
+                             f"{frames.shape} at {fps} fps, not the frames")
+    if not (video.pixels.shape == (VIDEO_FRAMES, channels, size, size)
+            and np.isfinite(video.pixels).all()):
+        raise AssertionError(f"{tag}: bad pixels {video.pixels.shape}")
+
+
+def phase_grid_video(ckpt, tmp, dev) -> dict:
+    """(a) render_video on the grid checkpoint at its defaults (128^2, 24 +
+    24 steps, 36 frames, front, geo), once per ray route: the .avi read
+    back equal to the frames, ms per frame, the launches of the route (on
+    auto, VIDEO_BLOCKS of each ray kernel per frame; no field kernel, the
+    grid field is torch); the kernel route's frames against the torch
+    route's (RENDER_TOL); a chunked frame (the CLI's first) against the
+    same frame rendered whole, bit-exact, on each route."""
+    from fenerf_tpu_torch.apps import render_video
+    from fenerf_tpu_torch.apps.common import (best_backend,
+                                              camera_trajectory,
+                                              load_generator)
+
+    out, videos = {"launches": {}}, {}
+    for ray in ("never", "auto"):
+        with ray_kernels(ray):
+            # --- the main path: counts from zero ---
+            zero_counts()
+            (video,) = render_video.main([
+                "--ckpt", ckpt, "--output_dir",
+                os.path.join(tmp, f"video_grid_{ray}")])
+            launches, plain = read_counts()
+        _check_video(video, VIDEO_SIZE, 3, 2, f"grid video ray={ray}")
+        ray_n = VIDEO_FRAMES * VIDEO_BLOCKS if ray == "auto" else 0
+        log(f"[grid video ray={ray}] {VIDEO_FRAMES} frames, "
+            f"{video.ms_per_frame:.1f} ms per frame; launches {launches}, "
+            f"plain calls {plain}")
+        if (launches["film_mlp"] != 0 or launches["ray_resample"] != ray_n
+                or launches["ray_finalize"] != ray_n or plain != 0):
+            raise AssertionError(f"grid video (ray={ray}) did not run "
+                                 "through its kernels alone")
+        out["launches"][ray] = launches
+        out[f"ms_per_frame_{ray}"] = video.ms_per_frame
+        videos[ray] = video
+    err = float(np.abs(videos["auto"].pixels
+                       - videos["never"].pixels).max())
+    log(f"[grid video] max|ray kernels - torch ray route| pixel {err:.3e} "
+        f"over {VIDEO_FRAMES} frames (tol {RENDER_TOL}); mean pixel "
+        f"{videos['never'].pixels.mean():.4f}")
+    if not err <= RENDER_TOL:
+        raise AssertionError(f"grid video routes disagree: {err}")
+
+    # a chunked frame against the whole-image frame: the CLI's first frame
+    # (t = 0: seed 0's z exactly) and the same render with ray_chunk 0
+    args = render_video.parse_args(["--ckpt", ckpt, "--ray_chunk", "0"])
+    _, params, _, cfg, _ = load_generator(ckpt, device=dev)   # the EMA
+    rcfg = render_video.render_config(args, cfg, best_backend(cfg, dev))
+    films_for_seed, render_frame = render_video.frame_renderer(
+        params, cfg, rcfg, args.psi, dev)
+    _, pitch, yaw, fov = camera_trajectory(args.trajectory, args.num_frames,
+                                           12.0)[0]
+    for ray in ("never", "auto"):
+        with ray_kernels(ray), torch.no_grad():
+            whole = render_frame(*films_for_seed(0), (pitch, yaw, fov),
+                                 render_video.frame_draws(rcfg, dev))
+        whole = whole["pixels"][0].cpu().numpy()
+        same = np.array_equal(whole, videos[ray].pixels[0])
+        log(f"[grid video ray={ray}] frame 0, ray_chunk 4096 vs whole "
+            f"image: bit-exact {same}, max|diff| "
+            f"{np.abs(whole - videos[ray].pixels[0]).max():.3e}")
+        if not same:
+            raise AssertionError(f"grid video (ray={ray}): the chunked frame "
+                                 "differs from the whole image")
+    return out
+
+
+def phase_film_video(ckpt, tmp, dev) -> dict:
+    """(b) render_video on the serving checkpoint at its defaults, the
+    field on its kernel and the rays under FENERF_RAY_KERNELS=auto: the
+    .avi read back, ms per frame, launches (per frame VIDEO_BLOCKS ray
+    blocks: two field evaluations each, one of each ray kernel); frames
+    VIDEO_REF_FRAMES held to the same frames on the field's torch route
+    at bf16 and the torch ray route (RENDER_TOL), rendered with the CLI's
+    own settings, films, draws and cameras."""
+    from fenerf_tpu_torch.apps import render_video
+    from fenerf_tpu_torch.apps.common import (camera_trajectory,
+                                              interpolate_films,
+                                              load_generator)
+
+    with ray_kernels("auto"):
+        # --- the main path: counts from zero ---
+        zero_counts()
+        (video,) = render_video.main(["--ckpt", ckpt, "--output_dir",
+                                      os.path.join(tmp, "video_film")])
+        launches, plain = read_counts()
+    _check_video(video, VIDEO_SIZE, 22, 4, "film video")
+    blocks = VIDEO_FRAMES * VIDEO_BLOCKS
+    log(f"[film video ray=auto] {VIDEO_FRAMES} frames, "
+        f"{video.ms_per_frame:.1f} ms per frame; launches {launches}, plain "
+        f"calls {plain}")
+    if (launches["film_mlp"] != 2 * blocks
+            or launches["ray_resample"] != blocks
+            or launches["ray_finalize"] != blocks or plain != 0):
+        raise AssertionError("film video did not run through its kernels "
+                             "alone")
+
+    args = render_video.parse_args(["--ckpt", ckpt])
+    _, params, _, cfg, _ = load_generator(ckpt, device=dev)   # the EMA
+    rcfg = render_video.render_config(args, cfg, "torch")
+    films_for_seed, render_frame = render_video.frame_renderer(
+        params, cfg, rcfg, args.psi, dev)
+    traj = camera_trajectory(args.trajectory, args.num_frames, 12.0)
+    draws = render_video.frame_draws(rcfg, dev)
+    err, t_ref = 0.0, 0.0
+    with ray_kernels("never"), torch.no_grad():
+        ends = films_for_seed(0), films_for_seed(1)
+        for i in VIDEO_REF_FRAMES:
+            t, pitch, yaw, fov = traj[i]
+            fg, fa = (interpolate_films(ends[0][k], ends[1][k], t,
+                                        args.latent_type, part)
+                      for k, part in enumerate(("geo", "app")))
+            t0 = time.perf_counter()
+            ref = render_frame(fg, fa, (pitch, yaw, fov), draws)["pixels"]
+            ref = ref[0].float().cpu().numpy()
+            t_ref += time.perf_counter() - t0
+            err = max(err, float(np.abs(video.pixels[i] - ref).max()))
+    ms_ref = t_ref / len(VIDEO_REF_FRAMES) * 1e3
+    log(f"[film video] max|kernels - torch routes (bf16)| pixel {err:.3e} "
+        f"over frames {VIDEO_REF_FRAMES} (tol {RENDER_TOL}); torch routes "
+        f"{ms_ref:.1f} ms per frame")
+    if not err <= RENDER_TOL:
+        raise AssertionError(f"film video disagrees with the torch route: "
+                             f"{err}")
+    return {"launches": launches, "ms_per_frame": video.ms_per_frame,
+            "ms_per_frame_torch": ms_ref}
+
+
+def phase_grid_apps(ckpt, tmp) -> dict:
+    """(c) The grid family's other paths: a render_multiview sheet at its
+    defaults (256^2, 24 x 2 steps, ray kernels on: 5 views x 16 blocks of
+    each), timed; extract_shapes at 256^3 with a mesh (the finiteness and
+    mesh checks of phase 5b); a request through serve (the torch route for
+    field and rays, no kernel launched)."""
+    from fenerf_tpu_torch.apps import render_multiview
+    from fenerf_tpu_torch.apps.serve import build_renderer
+    from fenerf_tpu_torch.utils.image import read_png
+
+    d = os.path.join(tmp, "multiview_grid")
+    with ray_kernels("auto"):
+        # --- the main path: counts from zero ---
+        zero_counts()
+        ((seed, views, ms),) = render_multiview.main([
+            "--ckpt", ckpt, "--seeds", "7", "--output_dir", d])
+        launches, plain = read_counts()
+    png = read_png(os.path.join(d, "img_7.png"))
+    blocks = 5 * 256 * 256 // 4096
+    log(f"[grid multiview] ms per 5-view sheet {ms:.1f}; launches "
+        f"{launches}, plain calls {plain}")
+    if not (views.shape == (5, 3, 256, 256) and np.isfinite(views).all()
+            and png.shape == SHEET
+            and not os.path.exists(os.path.join(d, "seg_7.png"))):
+        raise AssertionError(f"grid multiview: views {views.shape}, sheet "
+                             f"{png.shape}")
+    if (launches["film_mlp"] != 0 or launches["ray_resample"] != blocks
+            or launches["ray_finalize"] != blocks or plain != 0):
+        raise AssertionError("grid multiview did not run through its "
+                             "kernels alone")
+
+    timing = phase_shapes(ckpt, tmp, "grid shapes")
+
+    with ray_kernels("auto"):
+        zero_counts()
+        render_np, meta = build_renderer(ckpt, device="cuda", **SERVE)
+        srv, base = _serve(render_np, meta)
+        try:
+            t0 = time.perf_counter()
+            body = _get(f"{base}/render?seed=3&yaw=0.2&kind=rgb")
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = _get(f"{base}/render?seed=3&yaw=0.2&kind=rgb")
+            dt = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        serve_launches, serve_plain = read_counts()
+    log(f"[grid serve] backend {meta['backend']}, ray route "
+        f"{meta['ray_route']}: one rgb request {first * 1e3:.1f} ms (first), "
+        f"{dt * 1e3:.1f} ms (again); launches {serve_launches}, plain calls "
+        f"{serve_plain}")
+    if (body[:8] != PNG_MAGIC or body != again or struct.unpack(
+            ">II", body[16:24]) != (SERVE["image_size"],) * 2):
+        raise AssertionError("grid serve: not the same 128^2 PNG twice")
+    if (meta["family"], meta["backend"], meta["ray_route"]) != (
+            "grid", "torch", "torch") or any(serve_launches.values()) \
+            or serve_plain:
+        raise AssertionError(f"grid serve did not take the torch route: "
+                             f"{meta}, {serve_launches}")
+    return {"launches": launches, "ms_per_sheet": ms,
+            "volume_s": timing["volume_s"], "mesh_s": timing["mesh_s"],
+            "serve_ms": dt * 1e3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
@@ -1874,50 +2198,78 @@ def main() -> int:
     from fenerf_tpu_torch.train.curriculum import CURRICULA
 
     t_all = time.perf_counter()
-    phase_card()
-    kern = phase_kernel(dev)
-    resample, finalize = phase_ray(dev)
-    fold = phase_fold(dev)
+    spent = {}   # seconds per phase, host clock
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    timed("card and build", phase_card)
+    kern = timed("kernel", phase_kernel, dev)
+    resample, finalize = timed("ray", phase_ray, dev)
+    fold = timed("fold", phase_fold, dev)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_checkpoint(dev, tmp)
-        serve = {ray: phase_serve(ckpt, ray) for ray in ("never", "auto")}
+        serve = {ray: timed("serve", phase_serve, ckpt, ray)
+                 for ray in ("never", "auto")}
         log(f"[serve] batch-1 ms/request, ray kernels off / on: "
             f"{serve['never']['ms_per_request']:.1f} / "
             f"{serve['auto']['ms_per_request']:.1f}")
-        t0 = time.perf_counter()
-        multiview = phase_multiview(ckpt, tmp, dev)
-        shapes = phase_shapes(ckpt, tmp)
-        inverted = phase_invert(write_checkpoint(
+        multiview = timed("multiview", phase_multiview, ckpt, tmp, dev)
+        timed("shapes", phase_shapes, ckpt, tmp)
+        inverted = timed("invert", phase_invert, write_checkpoint(
             dev, tmp, INVERT_SIGMA_BIAS, INVERT_HEAD_GAIN,
             "generator_invert.npz"), tmp, dev)
-        log(f"[apps] multiview, shapes and invert in "
-            f"{time.perf_counter() - t0:.1f} s")
-    phase_render(dev)
-    bwd = phase_backward(dev)
+        # config 4: video of both families, the grid family's other paths
+        grid_ckpt = write_grid_checkpoint(dev, tmp)
+        grid_video = timed("grid video", phase_grid_video, grid_ckpt, tmp,
+                           dev)
+        film_video = timed("film video", phase_film_video, ckpt, tmp, dev)
+        grid_apps = timed("grid apps", phase_grid_apps, grid_ckpt, tmp)
+        log(f"[video] ms per frame: grid, ray kernels off / on "
+            f"{grid_video['ms_per_frame_never']:.1f} / "
+            f"{grid_video['ms_per_frame_auto']:.1f}; film, kernels "
+            f"{film_video['ms_per_frame']:.1f} (torch routes "
+            f"{film_video['ms_per_frame_torch']:.1f}); grid sheet "
+            f"{grid_apps['ms_per_sheet']:.1f} ms, grid volume "
+            f"{grid_apps['volume_s']:.2f} s")
+    timed("render", phase_render, dev)
+    bwd = timed("backward", phase_backward, dev)
     # the backward at invert's shape (phase 5c) beside phase 7's shapes
     shapes = bwd["shapes"] + [inverted["bwd"]]
     bwd = {**bwd, "max_abs_err": max(x["max_abs_err"] for x in shapes),
            "max_rel_err": max(x["max_rel_err"] for x in shapes),
            "min_cos": min(x["min_cos"] for x in shapes), "shapes": shapes}
-    train_off, trained = phase_train(dev, ray_on=False)
-    train_on, _ = phase_train(dev, ray_on=True)
+    train_off, trained = timed("train", phase_train, dev, ray_on=False)
+    train_on, _ = timed("train", phase_train, dev, ray_on=True)
     log(f"[train] ms/step, ray kernels off / on: "
         f"{train_off['ms_per_step']:.1f} / {train_on['ms_per_step']:.1f}")
-    phase_grad(dev, CURRICULA[TEXTURE].at_step(0), (trained, TRAIN_STEPS))
-    probe_launches, probe_results = phase_probe_scripts()
-    probes = phase_probes(dev, probe_results)
-    log(f"[done] all phases in {time.perf_counter() - t_all:.1f} s")
+    timed("grad", phase_grad, dev, CURRICULA[TEXTURE].at_step(0),
+          (trained, TRAIN_STEPS))
+    probe_launches, probe_results = timed("probe scripts",
+                                          phase_probe_scripts)
+    probes = timed("probes", phase_probes, dev, probe_results)
+    log(f"[done] all phases in {time.perf_counter() - t_all:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
 
     def launches(name):
         """Launches on the main paths: serving (both ray routes), training
-        (ray kernels off and on), multiview sheets (both ray routes) and
-        the inversion (with its warm start)."""
+        (ray kernels off and on), multiview sheets (both ray routes), the
+        inversion (with its warm start and its video), video (the grid
+        family on both ray routes, the film family on the kernels) and the
+        grid family's multiview sheet."""
         by_path = {"serve": sum(r["launches"][name] for r in serve.values()),
                    "train": (train_off["launches"][name]
                              + train_on["launches"][name]),
                    "multiview": sum(r[name] for r in
                                     multiview["launches"].values()),
-                   "invert": inverted["launches"][name]}
+                   "invert": inverted["launches"][name],
+                   "video": (sum(r[name] for r in
+                                 grid_video["launches"].values())
+                             + film_video["launches"][name]),
+                   "grid_multiview": grid_apps["launches"][name]}
         return {"launches": sum(by_path.values()),
                 **{f"launches_{k}": v for k, v in by_path.items()}}
 

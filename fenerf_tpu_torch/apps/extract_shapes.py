@@ -1,6 +1,6 @@
 """3D shape extraction CLI on the port: sigma volume on a voxel lattice ->
 .mrc (and, with --export_ply, a mesh). Counterpart of
-fenerf_tpu/apps/extract_shapes.py, film family.
+fenerf_tpu/apps/extract_shapes.py, both families.
 
 Reference: extract_double_semantic_shapes.py — 256^3 lattice over a 0.3
 cube, field evaluated with locked view direction (0, 0, -1), psi 0.5
@@ -9,7 +9,9 @@ consumes inversion checkpoints (apps/invert.py's freq / phase .npz) like the
 reference's sample_generator_wth_frequencies_phase_shifts path (:68-86).
 
 The lattice goes through the field's torch route in f32 (TF32 off), as the
-JAX package's through XLA: eval_volume passes no backend.
+JAX package's through XLA: eval_volume passes no backend. The latent-grid
+family's volume comes straight from z (eval_volume_grid: its plane once,
+no W truncation).
 
 Usage:
   python -m fenerf_tpu_torch.apps.extract_shapes --ckpt out/generator.npz \
@@ -64,18 +66,25 @@ def main(argv=None):
     dev = torch.device(args.device)
     # the lattice is evaluated in f32: no TF32 in its products (ROADMAP F4)
     torch.backends.cuda.matmul.allow_tf32 = False
-    params, ema, _, fcfg, _config = load_generator(args.ckpt, device=dev)
+    params, ema, _, fcfg, config = load_generator(args.ckpt, device=dev)
     if args.use_ema:
         params = ema
+    is_grid = config["family"] == "grid"
+    if is_grid and args.inversion_ckpt:
+        raise SystemExit("--inversion_ckpt holds film-family W offsets; "
+                         f"{args.ckpt} is a latent-grid checkpoint")
     os.makedirs(args.output_dir, exist_ok=True)
     res = args.voxel_resolution
     pts = gen.voxel_points(res, args.cube_size, device=dev)
     timings = []
 
-    def extract(film_geo, film_app, name):
+    def extract(film_geo, film_app, name, z=None):
         t0 = time.perf_counter()
-        out = gen.eval_volume(params, fcfg, film_geo, film_app, pts,
-                              chunk=args.chunk)
+        if is_grid:
+            out = gen.eval_volume_grid(params, fcfg, z, pts, chunk=args.chunk)
+        else:
+            out = gen.eval_volume(params, fcfg, film_geo, film_app, pts,
+                                  chunk=args.chunk)
         sigma = (out[:, -1].float().cpu().numpy().reshape(res, res, res))
         t_volume = time.perf_counter() - t0
         path = os.path.join(args.output_dir, f"{name}.mrc")
@@ -110,6 +119,13 @@ def main(argv=None):
             film_app = (t(data["freq_app"]), t(data["phase_app"]))
         name = os.path.splitext(os.path.basename(args.inversion_ckpt))[0]
         extract(film_geo, film_app, f"shape_{name}")
+        return timings
+
+    if is_grid:
+        for seed in args.seeds:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            zg = torch.randn((1, fcfg.z_geo_dim), generator=g, device=dev)
+            extract(None, None, f"shape_seed{seed}", z=zg)
         return timings
 
     with torch.no_grad():

@@ -15,6 +15,10 @@ Reference: inverse_render_double_semantic.py:
     StepLR(100, gamma 0.75) (:371-377).
   * mIoU of the 256px hierarchical render vs the 19-class gt every 20 iters
     (:437-448); checkpoint = 8 film tensors (:453-464).
+  * --render_video: the reconstruction along a camera trajectory, each
+    frame [rgb | colourized seg | 50/50 blend] at the eval render's
+    settings (run_render_recon_video, :471-507), written as an
+    uncompressed AVI (utils/video.py) where the JAX package writes mp4.
 
 On the card a step's render runs through the fused forward and backward
 field kernels (backend 'kernel_train'); only the offsets take gradients.
@@ -204,6 +208,7 @@ class InversionResult(NamedTuple):
     mious: np.ndarray         # one per eval render
     ms_per_iteration: float   # a step, host clock, synchronized
     ms_per_eval: float        # an eval render + its mIoU
+    video: str | None = None  # recon_{name}.avi with --render_video
 
 
 def parse_args(argv=None):
@@ -236,7 +241,10 @@ def parse_args(argv=None):
                    help="permit --lambda_percept > 0 without LPIPS weights "
                         "(the perceptual term is then dropped)")
     p.add_argument("--render_video", action="store_true",
-                   help="not ported yet (needs a video writer)")
+                   help="render the reconstruction trajectory video after "
+                        "optimization (reference run_render_recon_video)")
+    p.add_argument("--trajectory", default="front")
+    p.add_argument("--num_frames", type=int, default=36)
     p.add_argument("--device", default="cuda",
                    help="torch device (raises if CUDA is requested and "
                         "absent)")
@@ -245,17 +253,19 @@ def parse_args(argv=None):
 
 def main(argv=None) -> InversionResult:
     args = parse_args(argv)
-    if args.render_video:
-        raise NotImplementedError(
-            "--render_video is not ported yet: the reconstruction video "
-            "waits for the render_video slice (a video writer, ROADMAP A2)")
 
     from fenerf_tpu_torch.apps.common import best_backend, load_generator
     from fenerf_tpu_torch.nn import fields
     from fenerf_tpu_torch.ops import film_mlp
 
     dev = torch.device(args.device)
-    params, ema, _, fcfg, _cfg = load_generator(args.ckpt, device=dev)
+    params, ema, _, fcfg, config = load_generator(args.ckpt, device=dev)
+    if config["family"] == "grid":
+        # the reference defines W-space inversion only for the film family
+        # (freq/phase offsets, inverse_render_double_semantic.py:307-350);
+        # the grid field's film is per-point, so there is no W to offset
+        raise SystemExit("inversion requires a film-family checkpoint "
+                         "(the latent-grid family has no W-space)")
     if args.use_ema:
         params = ema
     os.makedirs(args.save_dir, exist_ok=True)
@@ -383,12 +393,44 @@ def main(argv=None) -> InversionResult:
     except ImportError:
         pass  # matplotlib absent: the .npy still carries the trace
     print(f"saved {out_path}")
+    video = None
+    if args.render_video:
+        video = recon_video(args, eval_params, fcfg, eval_rcfg, w, offsets,
+                            dev)
     losses = (torch.stack(losses).cpu().numpy() if losses
               else np.zeros(0, np.float32))
     return InversionResult(
         out_path, losses, np.asarray(mious),
         t_steps / max(args.iterations, 1) * 1e3,
-        t_evals / max(len(mious), 1) * 1e3)
+        t_evals / max(len(mious), 1) * 1e3, video)
+
+
+@torch.no_grad()
+def recon_video(args, params, fcfg, eval_rcfg, w, offsets, dev) -> str:
+    """The fitted W along args.trajectory, rendered as the eval render
+    (every frame from the same draws, render_video.frame_draws), each frame
+    [rgb | colourized seg | 50/50 blend] -> save_dir/recon_{name}.avi."""
+    from fenerf_tpu_torch.apps import render_video
+    from fenerf_tpu_torch.apps.common import camera_trajectory
+    from fenerf_tpu_torch.utils.image import mask2color, to_uint8
+    from fenerf_tpu_torch.utils.video import write_avi
+
+    fg, fa = noisy_film(w, offsets)
+    draws = render_video.frame_draws(eval_rcfg, dev)
+    frames = []
+    for _, pitch, yaw, fov in camera_trajectory(args.trajectory,
+                                                args.num_frames, 12.0):
+        pix = gen.render(params, fcfg, eval_rcfg, fg, fa, batch_size=1,
+                         camera=(pitch, yaw, fov), draws=draws)["pixels"]
+        pix = pix[0].float().cpu().numpy()
+        rgb = to_uint8(pix[-3:], normalize=False).transpose(1, 2, 0)
+        seg = mask2color(pix[None, :-3])[0]
+        blend = (0.5 * rgb + 0.5 * seg).astype(np.uint8)
+        frames.append(np.concatenate([rgb, seg, blend], axis=1))
+    path = os.path.join(args.save_dir, f"recon_{args.name}.avi")
+    write_avi(path, frames, fps=12)
+    print(f"wrote {path}")
+    return path
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Multiview portrait renderer CLI on the port (counterpart of
-fenerf_tpu/apps/render_multiview.py, film family).
+fenerf_tpu/apps/render_multiview.py, both families).
 
 Reference: render_multiview_images_double_semantic.py — loads generator +
 EMA, renders each seed at 5 yaw angles (h_mean +- {0, 0.25, 0.5}) with psi
 truncation, saves an RGB sheet and a palette-coloured segmentation sheet per
-seed. On the card the field runs in the fused kernel (ops/film_mlp.py) and,
-with FENERF_RAY_KERNELS=auto, the hierarchical machinery in the per-ray
-kernels (ops/ray_finalize.py).
+seed. On the card the film family's field runs in the fused kernel
+(ops/film_mlp.py) and, with FENERF_RAY_KERNELS=auto, both families'
+hierarchical machinery in the per-ray kernels (ops/ray_finalize.py). The
+latent-grid family renders RGB only (white background fill, no seg sheet)
+from z, without W truncation.
 
 Usage:
   python -m fenerf_tpu_torch.apps.render_multiview --ckpt out/generator.npz \
@@ -65,7 +67,8 @@ def main(argv=None):
 
     import torch
 
-    from fenerf_tpu_torch.apps.common import best_backend, load_generator
+    from fenerf_tpu_torch.apps.common import (best_backend, load_generator,
+                                              route_line)
     from fenerf_tpu_torch.models import generator as gen
     from fenerf_tpu_torch.nn import fields
     from fenerf_tpu_torch.ops import film_mlp
@@ -73,10 +76,13 @@ def main(argv=None):
                                               save_png, to_uint8)
 
     dev = torch.device(args.device)
-    params, ema, _, fcfg, _config = load_generator(args.ckpt, device=dev)
+    params, ema, _, fcfg, config = load_generator(args.ckpt, device=dev)
     if args.use_ema:
         params = ema
     os.makedirs(args.output_dir, exist_ok=True)
+    is_grid = config["family"] == "grid"
+    if is_grid and args.fill_mode == "seg_padding_background":
+        args.fill_mode = "eval_white_back"   # the grid family is RGB-only
 
     # reference default budget: num_steps x multiplier COARSE samples plus
     # an equal hierarchical fine pass (48 + 48 = 96 total at the defaults,
@@ -89,21 +95,21 @@ def main(argv=None):
         ray_chunk=args.ray_chunk,
         compute_dtype="float32" if args.deterministic else "bfloat16",
         backend=best_backend(fcfg, dev))
-    route, why = gen.ray_route(rcfg, dev)
-    print(f"[multiview] field backend {rcfg.backend}, ray route {route} "
-          f"({why})")
-    # the texture table (and the kernel's operands) once, not per view
-    table_dtype = (torch.bfloat16 if rcfg.backend != "torch"
-                   or rcfg.compute_dtype == "bfloat16" else None)
-    params = fields.with_grid_table(params, fcfg, table_dtype)
-    if rcfg.backend == "kernel":
-        params = film_mlp.with_pack(params, fcfg)
+    print(f"[multiview] {route_line(fcfg, rcfg, dev)}")
+    if not is_grid:
+        # the texture table (and the kernel's operands) once, not per view
+        table_dtype = (torch.bfloat16 if rcfg.backend != "torch"
+                       or rcfg.compute_dtype == "bfloat16" else None)
+        params = fields.with_grid_table(params, fcfg, table_dtype)
+        if rcfg.backend == "kernel":
+            params = film_mlp.with_pack(params, fcfg)
 
     zfile = np.load(args.z_file) if args.z_file else None
     sheets = []
     with torch.no_grad():
-        avg = fields.avg_film(params, fcfg,
-                              torch.Generator(device=dev).manual_seed(42))
+        if not is_grid:
+            avg = fields.avg_film(params, fcfg,
+                                  torch.Generator(device=dev).manual_seed(42))
         for seed in args.seeds:
             if zfile is not None:
                 t = lambda a: torch.as_tensor(a, dtype=torch.float32,
@@ -119,16 +125,28 @@ def main(argv=None):
                 z_app = torch.randn((1, fcfg.z_app_dim), generator=g,
                                     device=dev)
             t0 = time.perf_counter()
-            film_geo, film_app = fields.field_film(params, fcfg, z_geo, z_app)
-            film_geo = fields.truncate_film(film_geo, avg[0], args.psi)
-            film_app = fields.truncate_film(film_app, avg[1], args.psi)
+            if is_grid:
+                # the latent-grid family: no W-space truncation (its film
+                # is per point)
+                def render_view(camera):
+                    return gen.render_grid_from_z(
+                        params, fcfg, rcfg, z_geo, camera=camera,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+            else:
+                film_geo, film_app = fields.field_film(params, fcfg, z_geo,
+                                                       z_app)
+                film_geo = fields.truncate_film(film_geo, avg[0], args.psi)
+                film_app = fields.truncate_film(film_app, avg[1], args.psi)
+
+                def render_view(camera):
+                    return gen.render(
+                        params, fcfg, rcfg, film_geo, film_app, batch_size=1,
+                        camera=camera,
+                        generator=torch.Generator(device=dev).manual_seed(0))
             segs, views = [], []
             for off in YAW_OFFSETS:
-                camera = (math.pi * 0.5, math.pi * 0.5 + off, args.fov)
-                out = gen.render(
-                    params, fcfg, rcfg, film_geo, film_app, batch_size=1,
-                    noise_std=0.0, camera=camera,
-                    generator=torch.Generator(device=dev).manual_seed(0))
+                out = render_view((math.pi * 0.5, math.pi * 0.5 + off,
+                                   args.fov))
                 pix = out["pixels"].float().cpu().numpy()
                 views.append(pix[0])
                 if fcfg.n_labels:

@@ -1,5 +1,5 @@
 """Persistent render server on the port (counterpart of
-fenerf_tpu/apps/serve.py, film family).
+fenerf_tpu/apps/serve.py, both families).
 
 Loads a generator checkpoint ONCE onto the device, builds the texture
 table and the fused kernel's operands once, then answers HTTP requests:
@@ -12,7 +12,9 @@ table and the fused kernel's operands once, then answers HTTP requests:
 Device work is serialized with a lock; --batch N > 1 instead queues
 concurrent requests and renders up to N of them in one batch (per-request
 camera and psi). PNGs are encoded with a stdlib zlib writer
-(utils/image.py::encode_png).
+(utils/image.py::encode_png). A latent-grid checkpoint serves RGB from z
+(psi is not read: no W truncation) on the torch route for the field and
+the rays, as the JAX package serves it on XLA.
 
 Usage:
   python -m fenerf_tpu_torch.apps.serve --ckpt output/run/generator.npz \
@@ -88,18 +90,22 @@ def build_renderer(ckpt: str, image_size: int, num_steps: int,
     params, ema, _, fcfg, config = load_generator(ckpt, device=dev)
     if use_ema:
         params = ema
+    is_grid = config["family"] == "grid"
+    if is_grid and fill_mode == "seg_padding_background":
+        fill_mode = "eval_white_back"   # the grid family is RGB-only
     steps = num_steps * ray_step_multiplier
     rcfg = gen.RenderConfig(
         img_size=image_size, num_steps=steps, hierarchical=True,
         perturb=True, fill_mode=fill_mode, fill_color=fill_color, fov=fov,
         ray_chunk=ray_chunk, compute_dtype="bfloat16",
-        backend=best_backend(fcfg, dev))
-    # derived operands once per loaded checkpoint, not per request
-    params = fields.with_grid_table(params, fcfg, torch.bfloat16)
-    if rcfg.backend == "kernel":
-        params = film_mlp.with_pack(params, fcfg)
-    avg = fields.avg_film(params, fcfg,
-                          torch.Generator(device=dev).manual_seed(42))
+        backend="torch" if is_grid else best_backend(fcfg, dev))
+    if not is_grid:
+        # derived operands once per loaded checkpoint, not per request
+        params = fields.with_grid_table(params, fcfg, torch.bfloat16)
+        if rcfg.backend == "kernel":
+            params = film_mlp.with_pack(params, fcfg)
+        avg = fields.avg_film(params, fcfg,
+                              torch.Generator(device=dev).manual_seed(42))
 
     @torch.inference_mode()
     def render_many(z_geo, z_app, pitch, yaw, psi):
@@ -107,16 +113,20 @@ def build_renderer(ckpt: str, image_size: int, num_steps: int,
         pixels (B, C, H, W) and depth (B, H, W)."""
         t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
         camera = (math.pi * 0.5 + t(pitch), math.pi * 0.5 + t(yaw), fov)
-        out = gen.render_truncated(
-            params, fcfg, rcfg, t(z_geo), t(z_app), avg, psi=t(psi),
-            noise_std=0.0, camera=camera,
-            generator=torch.Generator(device=dev).manual_seed(0))
+        g = torch.Generator(device=dev).manual_seed(0)
+        if is_grid:
+            out = gen.render_grid_from_z(params, fcfg, rcfg, t(z_geo),
+                                         camera=camera, generator=g)
+        else:
+            out = gen.render_truncated(
+                params, fcfg, rcfg, t(z_geo), t(z_app), avg, psi=t(psi),
+                noise_std=0.0, camera=camera, generator=g)
         return out["pixels"].cpu().numpy(), out["depth"].cpu().numpy()
 
     ray_route, ray_why = gen.ray_route(rcfg, dev)
     meta = {"model": config.get("model"), "family": config.get("family"),
             "step": config.get("step"), "image_size": image_size,
-            "num_steps": steps, "n_labels": int(fcfg.n_labels or 0),
+            "num_steps": steps, "n_labels": int(fcfg.n_labels),
             "ema": bool(use_ema), "backend": rcfg.backend,
             "ray_route": ray_route, "ray_route_why": ray_why,
             "device": str(dev)}

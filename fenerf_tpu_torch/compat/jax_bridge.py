@@ -6,7 +6,9 @@ jax.tree_util orders them: dict keys sorted, lists in index order (so a
 Linear's 'b' comes before its 'w'). The JAX package's `.npz` generator
 checkpoints (fenerf_tpu/apps/common.py::save_generator) store leaves in
 exactly that order, so reading and writing them is a plain copy; Linear
-weights keep their (in, out) layout.
+weights keep their (in, out) layout. The latent-grid family's tree sorts
+the same way: color, color_head, map, sigma_head, style_gen, trunk, and
+inside style_gen conv1 before convs.
 """
 from __future__ import annotations
 

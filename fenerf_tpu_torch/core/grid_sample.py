@@ -1,6 +1,6 @@
 """Trilinear 3D texture-grid sampling (port of fenerf_tpu/core/grid_sample.py:
 grid_sample_3d, the z-expanded table with its hand adjoint, and the table
-sampler).
+sampler) and the latent grid's bilinear 2D sampler (grid_sample_2d).
 
 Semantics of torch.nn.functional.grid_sample(mode='bilinear',
 padding_mode='zeros', align_corners=True) on a (C, D, H, W) grid with
@@ -169,3 +169,36 @@ def grid_sample_3d_fast(grid: torch.Tensor, coords: torch.Tensor,
     return sample_zexp_table(build_zexp_table(grid, table_dtype), grid.shape,
                              coords)
 
+
+
+def grid_sample_2d(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Sample `grid` (C, H, W) at `coords` (..., 2) = (x, y) in [-1, 1]:
+    bilinear, align_corners=False (index = ((c + 1) * size - 1) / 2), zeros
+    outside, as the latent-grid field's local latents. The four corner
+    terms are summed in the JAX package's order (y outer, x inner), so the
+    two agree to f32 rounding. Returns (..., C)."""
+    c, h, w = grid.shape
+    batch_shape = coords.shape[:-1]
+    xy = coords.reshape(-1, 2)
+    sizes = torch.tensor([w, h], dtype=coords.dtype, device=coords.device)
+    idx = ((xy + 1.0) * sizes - 1.0) / 2.0
+    i0f = torch.floor(idx)
+    frac = idx - i0f
+    i0 = i0f.to(torch.int64)
+    i1 = i0 + 1
+    dims = (w, h)
+    valid0 = [(i0[:, a] >= 0) & (i0[:, a] < s) for a, s in enumerate(dims)]
+    valid1 = [(i1[:, a] >= 0) & (i1[:, a] < s) for a, s in enumerate(dims)]
+    c0 = [i0[:, a].clamp(0, s - 1) for a, s in enumerate(dims)]
+    c1 = [i1[:, a].clamp(0, s - 1) for a, s in enumerate(dims)]
+    flat = grid.reshape(c, -1).T  # (H*W, C)
+
+    out = 0.0
+    for by, (yi, yv) in enumerate(((c0[1], valid0[1]), (c1[1], valid1[1]))):
+        wy = (1.0 - frac[:, 1]) if by == 0 else frac[:, 1]
+        for bx, (xi, xv) in enumerate(((c0[0], valid0[0]),
+                                       (c1[0], valid1[0]))):
+            wx = (1.0 - frac[:, 0]) if bx == 0 else frac[:, 0]
+            weight = wy * wx * (yv & xv).to(coords.dtype)
+            out = out + flat[yi * w + xi] * weight[:, None]
+    return out.reshape(*batch_shape, c)

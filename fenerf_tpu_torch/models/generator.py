@@ -1,7 +1,8 @@
-"""The volumetric generator for the FiLM-SIREN family (port of
-fenerf_tpu/models/generator.py: render_core, render, render_from_z,
-render_any, render_truncated, and the shape extraction's voxel_points and
-eval_volume).
+"""The volumetric generator (port of fenerf_tpu/models/generator.py:
+render_core, render, render_from_z, render_truncated and the shape
+extraction's voxel_points and eval_volume for the FiLM-SIREN family;
+render_grid_from_z and eval_volume_grid for the latent-grid family; the
+family dispatch get_any_config / init_any_field / render_any).
 
 Pipeline: ray grid -> stratified jitter -> camera -> cam2world -> coarse
 field eval -> proposal weights -> sample_pdf -> fine field eval ->
@@ -32,6 +33,7 @@ import torch.utils.checkpoint
 from fenerf_tpu_torch.core import integrate as integ
 from fenerf_tpu_torch.core import rays as raylib
 from fenerf_tpu_torch.nn import fields
+from fenerf_tpu_torch.nn import latent_grid_field as lgf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,13 +135,17 @@ def ray_route(rcfg: RenderConfig, device) -> tuple[str, str]:
     (ops/ray_finalize.py), else ("torch", why).
 
     FENERF_RAY_KERNELS, read at every call: 'never' (default, as in the
-    JAX package) or 'auto' (the kernels when the field backend is
-    kernel / kernel_train and the rays are on CUDA)."""
+    JAX package) or 'auto' (the kernels when the backend is kernel /
+    kernel_train and the rays are on CUDA). The backend names the
+    render's kernel route: the latent-grid field has no kernel and runs
+    its torch route whatever the backend, so for that family 'kernel'
+    opens the ray kernels alone, as the JAX package's 'pallas' does there
+    (XLA field, Pallas ray machinery)."""
     mode = os.environ.get("FENERF_RAY_KERNELS", "never")
     if mode not in RAY_KERNEL_MODES:
         raise ValueError(f"FENERF_RAY_KERNELS={mode!r}: expected one of "
                          f"{RAY_KERNEL_MODES}")
-    why = f"FENERF_RAY_KERNELS={mode}, field backend {rcfg.backend}"
+    why = f"FENERF_RAY_KERNELS={mode}, backend {rcfg.backend}"
     if mode == "never" or not rcfg.hierarchical \
             or rcfg.backend not in ("kernel", "kernel_train"):
         return "torch", why
@@ -359,15 +365,64 @@ def render_from_z(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,
                   generator=generator, draws=draws)
 
 
+def _grid_field_fn(params, gcfg: lgf.GridFieldConfig, rcfg: RenderConfig,
+                   z: torch.Tensor):
+    """The latent-grid field as a per-point closure, its StyleGenerator2D
+    plane computed once here, not once per ray block."""
+    compute_dtype = (torch.bfloat16 if rcfg.compute_dtype == "bfloat16"
+                     else torch.float32)
+    plane = lgf.compute_plane(params, gcfg, z)
+
+    def field_fn(pts, drs):
+        return lgf.apply_grid_field(params, gcfg, pts, drs, z, plane=plane,
+                                    compute_dtype=compute_dtype)
+
+    return field_fn
+
+
+def render_grid_from_z(params, gcfg: lgf.GridFieldConfig,
+                       rcfg: RenderConfig, z: torch.Tensor, noise_std=0.0,
+                       camera: tuple | None = None,
+                       generator: torch.Generator | None = None,
+                       draws: RenderDraws | None = None):
+    """Latent-grid family (SPATIALSIRENGRID): z -> StyleGenerator2D plane
+    -> per-point local latents -> render."""
+    field_fn = _grid_field_fn(params, gcfg, rcfg, z)
+    return render_core(field_fn, gcfg.output_dim, rcfg, z.shape[0],
+                       noise_std, camera, generator, draws, device=z.device)
+
+
+# ---------------------------------------------------------------------------
+# Family dispatch: the FiLM-SIREN family (FieldConfig) and the latent-grid
+# family (GridFieldConfig)
+# ---------------------------------------------------------------------------
+
+def get_any_config(model: str, **kwargs):
+    """FieldConfig or GridFieldConfig by the reference's model name."""
+    if lgf.is_grid_model(model):
+        return lgf.get_grid_config(model, **kwargs)
+    return fields.get_config(model, **kwargs)
+
+
+def is_grid_config(cfg) -> bool:
+    return isinstance(cfg, lgf.GridFieldConfig)
+
+
+def init_any_field(gen: torch.Generator, cfg, device="cpu"):
+    if is_grid_config(cfg):
+        return lgf.init_grid_field(gen, cfg, device)
+    return fields.init_field(gen, cfg, device)
+
+
 def render_any(params, cfg, rcfg: RenderConfig, z_geo, z_app, noise_std=0.0,
                camera: tuple | None = None,
                generator: torch.Generator | None = None,
                draws: RenderDraws | None = None):
-    """Family-generic z -> image render (the trainer's generator rollout).
-    Only the film family is ported."""
-    if not isinstance(cfg, fields.FieldConfig):
-        raise NotImplementedError(
-            f"render_any: only the film family is ported, not {cfg!r}")
+    """Family-generic z -> image render. The grid family has one latent:
+    z_geo drives the StyleGenerator2D and z_app is not read."""
+    if is_grid_config(cfg):
+        return render_grid_from_z(params, cfg, rcfg, z_geo, noise_std,
+                                  camera, generator, draws)
     film_geo, film_app = fields.field_film(params, cfg, z_geo, z_app)
     return render(params, cfg, rcfg, film_geo, film_app,
                   batch_size=z_geo.shape[0], noise_std=noise_std,
@@ -437,4 +492,27 @@ def eval_volume(params, fcfg: fields.FieldConfig, film_geo, film_app,
         out.append(fields.apply_field(
             params, fcfg, p[None], d[None], film_geo, film_app,
             compute_dtype=compute_dtype)[0])
+    return torch.cat(out)[:n]
+
+
+@torch.no_grad()
+def eval_volume_grid(params, gcfg: lgf.GridFieldConfig, z: torch.Tensor,
+                     points: torch.Tensor, chunk: int = 262144,
+                     compute_dtype=torch.float32) -> torch.Tensor:
+    """The latent-grid analogue of eval_volume: field outputs over points
+    (N, 3) for z (1, z_dim) with the locked (0, 0, -1) view direction, in
+    blocks of `chunk` points (the last padded with zeros), the plane
+    computed once. Returns (N, output_dim)."""
+    n = points.shape[0]
+    pad = (-n) % chunk
+    pts = torch.cat([points, points.new_zeros(pad, 3)]) if pad else points
+    plane = lgf.compute_plane(params, gcfg, z)
+    out = []
+    for i in range(0, pts.shape[0], chunk):
+        p = pts[i:i + chunk]
+        d = torch.zeros_like(p)
+        d[..., -1] = -1.0
+        out.append(lgf.apply_grid_field(params, gcfg, p[None], d[None], z,
+                                        plane=plane,
+                                        compute_dtype=compute_dtype)[0])
     return torch.cat(out)[:n]

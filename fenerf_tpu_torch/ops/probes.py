@@ -262,15 +262,15 @@ def ray_inputs(gen: torch.Generator, device, b: int, r: int, s: int,
     return z, sigma, outputs
 
 
-def ray_bounds(b: int, r: int, s: int, noisy: bool
+def ray_bounds(b: int, r: int, s: int, noisy: bool, c1: int = N_OUT
                ) -> tuple[tuple[float, str], tuple[float, str]]:
-    """((ms, bound_by) of ray_resample, of ray_finalize) at S + S samples:
-    every input read once, every output written once; a few dozen f32
-    operations per sample, 2 per channel and sample."""
+    """((ms, bound_by) of ray_resample, of ray_finalize) at S + S samples
+    of c1 field outputs: every input read once, every output written once;
+    a few dozen f32 operations per sample, 2 per channel and sample."""
     rows, t = b * r, 2 * s
     resample = bound_ms(rows * s * 40, 4 * rows * s * (4 + noisy),
                         PEAK_F32_FLOPS)
-    finalize = bound_ms(rows * t * (2 * N_OUT + 30),
-                        4 * rows * (t * (N_OUT + 1 + noisy) + N_OUT + 1),
+    finalize = bound_ms(rows * t * (2 * c1 + 30),
+                        4 * rows * (t * (c1 + 1 + noisy) + c1 + 1),
                         PEAK_F32_FLOPS)
     return resample, finalize

@@ -285,6 +285,55 @@ class TestServe:
             np.testing.assert_allclose(o, single(*q)[0], atol=0.05)
 
 
+def test_grid_request_to_the_server(tmp_path):
+    """A latent-grid checkpoint (written by the JAX package) served by the
+    port: RGB from the request's z on the torch route for the field and
+    the rays (as the JAX package serves it on XLA), the same pixels as a
+    direct render_grid_from_z of that z, and seg falling back to RGB."""
+    from fenerf_tpu.nn import latent_grid_field as jlgf
+
+    grid_kw = dict(z_dim=8, hidden_dim=16, grid_res=8, grid_ch=8, ch_max=16,
+                   map_hidden_dim=16)
+    gp = jlgf.init_grid_field(jax.random.key(1), jlgf.get_grid_config(
+        "SPATIALSIRENGRID", **grid_kw))
+    gp["sigma_head"]["b"] = gp["sigma_head"]["b"] + 5.0
+    ckpt = str(tmp_path / "grid.npz")
+    jcommon.save_generator(ckpt, gp, gp, gp, "SPATIALSIRENGRID", step=3,
+                           field_kwargs=grid_kw)
+    render_np, meta = tserve.build_renderer(
+        ckpt, image_size=16, num_steps=3, ray_step_multiplier=1, fov=12.0,
+        fill_mode="seg_padding_background", fill_color="black", ray_chunk=0,
+        use_ema=True, device="cpu")
+    assert meta["family"] == "grid" and meta["n_labels"] == 0
+    assert meta["backend"] == "torch" and meta["ray_route"] == "torch"
+    srv = tserve.make_server(render_np, meta, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        def get(q):
+            with urllib.request.urlopen(f"{base}/render?{q}", timeout=120) as r:
+                return r.read()
+
+        rgb = get("seed=3&yaw=0.2&pitch=-0.05&kind=rgb")
+        assert get("seed=3&yaw=0.2&pitch=-0.05&kind=seg") == rgb
+        assert _png_pixels(get("seed=3&kind=depth")).shape == (16, 16, 3)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    params, _, _, cfg, _ = tcommon.load_generator(ckpt, device="cpu")
+    zg, _ = tserve._seed_latents(3, cfg)
+    rcfg = tgen.RenderConfig(img_size=16, num_steps=3, fov=12.0,
+                             fill_mode="eval_white_back",
+                             compute_dtype="bfloat16")
+    pix = tgen.render_grid_from_z(
+        params, cfg, rcfg, torch.from_numpy(zg[None]),
+        camera=(np.pi / 2 + torch.tensor([[-0.05]]),
+                np.pi / 2 + torch.tensor([[0.2]]), 12.0),
+        generator=torch.Generator().manual_seed(0))["pixels"][0].numpy()
+    want = np.clip((pix[-3:] + 1) / 2 * 255 + 0.5, 0, 255).astype(np.uint8)
+    np.testing.assert_array_equal(_png_pixels(rgb), want.transpose(1, 2, 0))
+    assert np.ptp(want) > 10
+
 def test_port_imports_no_jax():
     code = (
         "import sys, importlib, pkgutil\n"

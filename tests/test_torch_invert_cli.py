@@ -1,7 +1,8 @@
 """The port's inversion CLI on the CPU, mirroring tests/test_apps.py's
 TestInvert: a tiny run with its warm start (the prior W + offsets become
 the new base), the refusal of --lambda_percept without LPIPS weights, the
-PNG-only targets and the options that wait for later slices. Tiny sizes
+PNG-only targets, the refusal of a grid-family checkpoint, and the
+reconstruction video against the JAX package's triptych. Tiny sizes
 (TINY_KW, 16^2, 4 steps; the 256px eval render at 4 samples per ray,
 not the reference's 48, which take ~25 s per eval on two CPU threads)."""
 import os
@@ -108,10 +109,75 @@ def test_targets_must_be_png(setup, tmp_path):
 
 
 def test_unported_and_device_defaults(setup, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="render_video"):
-        main(_args(setup, "v", str(tmp_path), "--render_video"))
+    """A latent-grid checkpoint is refused with the JAX package's message
+    (the grid family has no W-space); the card is the default device."""
+    from fenerf_tpu.nn import latent_grid_field as jlgf
+
+    grid_kw = dict(z_dim=8, hidden_dim=16, grid_res=8, grid_ch=8, ch_max=16,
+                   map_hidden_dim=16)
+    gp = jlgf.init_grid_field(jax.random.key(0), jlgf.get_grid_config(
+        "SPATIALSIRENGRID", **grid_kw))
+    grid_ckpt = str(tmp_path / "grid.npz")
+    jcommon.save_generator(grid_ckpt, gp, gp, gp, "SPATIALSIRENGRID", step=1,
+                           field_kwargs=grid_kw)
+    _, img_p, seg_p = setup
+    with pytest.raises(SystemExit, match="requires a film-family checkpoint"):
+        main(_args((grid_ckpt, img_p, seg_p), "g", str(tmp_path),
+                   "--render_video"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ckpt, img_p, seg_p = setup
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["x", "--ckpt", ckpt, "--image_path", img_p, "--seg_path",
               seg_p, "--save_dir", str(tmp_path)])
+
+
+def test_render_video_matches_jax_triptych(setup, tmp_path, monkeypatch):
+    """--render_video writes recon_{name}.avi: the fitted W along the
+    trajectory at the eval render's settings, [rgb | seg | blend] per
+    frame, each within 1 uint8 of the triptych the JAX package builds
+    (fenerf_tpu/apps/invert.py:306-331) from the same W and draws."""
+    from fenerf_tpu.models import generator as jgen
+    from fenerf_tpu.utils.image import mask2color, to_uint8
+    from fenerf_tpu_torch.apps import render_video
+    from fenerf_tpu_torch.models import generator as tgen
+    from fenerf_tpu_torch.utils.video import read_avi
+
+    jp, _, _, jcfg, _ = jcommon.load_generator(setup[0])
+    jr = jgen.RenderConfig(
+        img_size=256, num_steps=invert.EVAL_NUM_STEPS, hierarchical=True,
+        h_stddev=0.0, v_stddev=0.0, sample_dist=None,
+        fill_mode="eval_seg_padding_background", ray_chunk=8192)
+    key = jax.random.key(0)
+    k_rays, k_c, k_pdf, k_f = jax.random.split(key, 4)
+    k_perturb, _ = jax.random.split(k_rays)
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    noise = jgen.draw_ray_noise(k_c, k_pdf, k_f, 1, jr.n_rays, jr, 0.0)
+    draws = tgen.RenderDraws(
+        t(jax.random.uniform(k_perturb, (1, jr.n_rays, jr.num_steps))),
+        None, None, tgen.RayNoise(t(noise.u), None, None))
+    monkeypatch.setattr(render_video, "frame_draws", lambda *a: draws)
+    res = main(_args(setup, "rv", str(tmp_path), "--iterations", "1",
+                     "--lambda_seg", "1", "--eval_every", "5",
+                     "--render_video", "--num_frames", "2"))
+    assert res.video == str(tmp_path / "recon_rv.avi")
+    frames, fps = read_avi(res.video)
+    assert frames.shape == (2, 256, 3 * 256, 3) and fps == 12.0
+
+    with np.load(res.path) as data:
+        fg = (data["freq_geo"], data["phase_geo"])
+        fa = (data["freq_app"], data["phase_app"])
+
+    @jax.jit
+    def render_frame(camera):
+        return jgen.render(jp, jcfg, jr, key, fg, fa, batch_size=1,
+                           noise_std=0.0, camera=camera)["pixels"]
+
+    for i, (_, pitch, yaw, fov) in enumerate(
+            jcommon.camera_trajectory("front", 2, 12.0)):
+        pix = np.asarray(render_frame((pitch, yaw, fov)))[0]
+        rgb = to_uint8(pix[-3:], normalize=False).transpose(1, 2, 0)
+        seg = mask2color(pix[None, :-3])[0]
+        blend = (0.5 * rgb + 0.5 * seg).astype(np.uint8)
+        ref = np.concatenate([rgb, seg, blend], axis=1).astype(np.int16)
+        assert np.abs(frames[i].astype(np.int16) - ref).max() <= 1, i
+        assert np.ptp(ref[:, :256]) > 10        # not a blank render

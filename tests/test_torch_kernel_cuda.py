@@ -33,6 +33,8 @@ def device():
     (FLAGSHIP, dict(grid_resolution=16), 1, 4096 * 4),     # full width
     # a block of the inversion's eval render: ray_chunk 8192 x 48 samples
     (FLAGSHIP, dict(grid_resolution=16), 1, 8192 * 48),
+    # a block of render_video's frame: ray_chunk 4096 x 24 samples
+    (FLAGSHIP, dict(grid_resolution=16), 1, 4096 * 24),
     (FLAGSHIP, dict(grid_resolution=16), 3, 1001),         # ragged tiles
     (FLAGSHIP, dict(grid_resolution=16), 3, 200),          # tiles straddle
     (FLAGSHIP, dict(grid_resolution=16), 1, 37),           # < 64 rows
@@ -254,6 +256,31 @@ def test_ray_finalize_kernel_matches_plain(device, b, r, sf, sc, c1, noisy,
         assert g.shape == a.shape and torch.isfinite(g).all()
         err = (g - a).abs().max().item()
         assert err <= RAY_TOL, err
+
+
+@pytest.mark.parametrize("fill_mode", [None, "eval_white_back"])
+def test_ray_kernels_at_the_grid_setting(device, fill_mode):
+    """The latent-grid render's block (render_video at its defaults: 4096
+    rays, 24 + 24 samples, no sigma noise): rgb + sigma outputs (C = 4),
+    the white-background fill (or none, as the render passes it) and no
+    label softmax."""
+    from fenerf_tpu_torch.ops import ray_finalize as rf
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    b, r, s = 1, 4096, 24
+    z, sigma, out = _ray_inputs(gen, device, b, r, s, c1=4)
+    u = torch.rand(b, r, s, generator=gen, device=device)
+    fz = rf.ray_resample(sigma, z, None, u)
+    fz_ref = rf.ray_resample_reference(sigma, z, None, u)
+    fo, co = out(s), out(s)
+    got = rf.ray_finalize(fo, co, fz, z, None, fill_mode=fill_mode)
+    ref = rf.ray_finalize_reference(fo, co, fz, z, None, fill_mode=fill_mode)
+    torch.cuda.synchronize()
+    assert (fz - fz_ref).abs().max().item() <= RAY_TOL
+    assert got[0].shape == (b, r, 3)
+    for g, a in zip(got, ref):
+        assert g.shape == a.shape and torch.isfinite(g).all()
+        assert (g - a).abs().max().item() <= RAY_TOL
 
 
 def test_ray_resample_kernel_more_uniforms_than_samples(device):

@@ -99,3 +99,36 @@ def test_cuda_is_the_default_device(dense_ckpt, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--ckpt", dense_ckpt[0], "--output_dir", str(tmp_path)])
+
+
+def test_grid_family_deterministic_cli_matches_jax(tmp_path):
+    """A latent-grid checkpoint: RGB sheets only (white background, no
+    seg), from z without W truncation; --deterministic --z_file PNGs of
+    both CLIs within 1 uint8."""
+    from fenerf_tpu.apps.render_multiview import main as jmain
+    from fenerf_tpu.nn import latent_grid_field as jlgf
+    from fenerf_tpu_torch.apps.render_multiview import main as tmain
+
+    grid_kw = dict(z_dim=8, hidden_dim=16, grid_res=8, grid_ch=8, ch_max=16,
+                   map_hidden_dim=16)
+    gp = jlgf.init_grid_field(jax.random.key(1), jlgf.get_grid_config(
+        "SPATIALSIRENGRID", **grid_kw))
+    gp["sigma_head"]["b"] = gp["sigma_head"]["b"] + 5.0
+    ckpt = str(tmp_path / "grid.npz")
+    jcommon.save_generator(ckpt, gp, gp, gp, "SPATIALSIRENGRID", step=1,
+                           field_kwargs=grid_kw)
+    z = str(tmp_path / "z.npz")
+    np.savez(z, z_geo=np.random.default_rng(6).standard_normal(
+        (2, 8)).astype(np.float32))
+    common = ARGS + ["--ckpt", ckpt, "--z_file", z, "--deterministic"]
+    jmain(common + ["--output_dir", str(tmp_path / "j")])
+    sheets = tmain(common + ["--output_dir", str(tmp_path / "t"),
+                             "--device", "cpu"])
+    assert [s[1].shape for s in sheets] == [(5, 3, 16, 16)] * 2
+    for seed in (0, 1):
+        ref = _png(tmp_path / "j" / f"img_{seed}.png")
+        out = _png(tmp_path / "t" / f"img_{seed}.png")
+        assert out.shape == ref.shape == (2 + 18, 2 + 5 * 18, 3)
+        assert np.abs(out - ref).max() <= 1, seed
+        assert np.ptp(ref) > 50
+        assert not (tmp_path / "t" / f"seg_{seed}.png").exists()

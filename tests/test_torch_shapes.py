@@ -136,3 +136,37 @@ def test_unported_options_raise(tmp_path):
 
     with pytest.raises(NotImplementedError, match="A6"):
         main(["--ckpt", "unused.npz", "--shard_rays"])
+
+
+def test_extract_shapes_cli_grid_family(tmp_path):
+    """A latent-grid checkpoint: the CLI's volume (eval_volume_grid, the
+    plane once, z from a generator seeded with the seed) against the JAX
+    package's eval_volume_grid on the same z and lattice; an inversion
+    checkpoint (film W offsets) is refused for it."""
+    from fenerf_tpu.nn import latent_grid_field as jlgf
+    from fenerf_tpu_torch.apps.extract_shapes import main as tmain
+
+    grid_kw = dict(z_dim=8, hidden_dim=16, grid_res=8, grid_ch=8, ch_max=16,
+                   map_hidden_dim=16)
+    jcfg = jlgf.get_grid_config("SPATIALSIRENGRID", **grid_kw)
+    jp = jlgf.init_grid_field(jax.random.key(2), jcfg)
+    jp["sigma_head"]["b"] = jp["sigma_head"]["b"] + 5.0
+    ckpt = str(tmp_path / "grid.npz")
+    jcommon.save_generator(ckpt, jp, jp, jp, "SPATIALSIRENGRID", step=1,
+                           field_kwargs=grid_kw)
+    (timing,) = tmain(["--ckpt", ckpt, "--seeds", "4", "--voxel_resolution",
+                       "16", "--chunk", "1000", "--output_dir",
+                       str(tmp_path / "t"), "--device", "cpu"])
+    assert timing["name"] == "shape_seed4" and timing["volume_s"] > 0
+    out = tmrc.read_mrc(str(tmp_path / "t" / "shape_seed4.mrc"))
+    z = torch.randn((1, 8), generator=torch.Generator().manual_seed(4))
+    ref = jax.jit(lambda p, z, x: jgen.eval_volume_grid(
+        p, jcfg, z, x, chunk=1000))(jp, jnp.asarray(z.numpy()),
+                                    jgen.voxel_points(16, 0.3))
+    ref = np.asarray(ref[:, -1]).reshape(16, 16, 16)
+    assert out.shape == (16, 16, 16) and np.ptp(ref) > 0.1
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+    inv = str(tmp_path / "inv.npz")
+    np.savez(inv, freq_geo=np.zeros(1))
+    with pytest.raises(SystemExit, match="latent-grid"):
+        tmain(["--ckpt", ckpt, "--inversion_ckpt", inv, "--device", "cpu"])
