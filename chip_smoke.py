@@ -13,15 +13,19 @@ published widths, through the ray kernels, and the grid family's
 multiview, shape and serving paths; and GAN training
 (fenerf_tpu_torch.train.loop) through it and the hand-written backward
 kernels (ops/csrc/film_mlp_bwd.cu) and the table-fold kernel
-(ops/csrc/zexp_fold.cu); and both again with the switch of the fused per-ray
-kernels on (FENERF_RAY_KERNELS=auto: ops/csrc/ray_finalize.cu); and the
+(ops/csrc/zexp_fold.cu), also through the trainer's entry point
+(fenerf_tpu_torch.apps.train: a synthetic CelebAMask-HQ tree of committed
+JPEGs decoded by the port's host codec, checkpoints and resume, the FID
+protocol on stand-in InceptionV3 weights, the 64^2 stage); and both again
+with the switch of the fused per-ray kernels on (FENERF_RAY_KERNELS=auto: ops/csrc/ray_finalize.cu); and the
 ceiling-probe scripts (scripts/profile_torch_{mxu_chain,epilogue_overlap,
 dma_gather}.py) through their kernels (ops/csrc/mxu_chain.cu,
 ops/csrc/mxu_wide.cu, ops/csrc/dma_gather.cu). Every kernel is built here from the checkout.
 
 Phases (any failure exits non-zero):
   1. card and build: card name and power limit, torch / CUDA versions,
-     all seven kernel libraries built in parallel (one nvcc each); per
+     all seven kernel libraries built in parallel (one nvcc each) beside
+     the host codec (data/native/codec.cpp, c++); per
      field, chain and gather library the registers and spills of each
      kernel and its count of HGMMA (wgmma) and HMMA (mma.sync / wmma)
      instructions in the SASS (cuobjdump), failing if film_mlp's kernel,
@@ -45,7 +49,8 @@ Phases (any failure exits non-zero):
   3. the ray kernels against their plain versions at every block a main
      path gives them (RAY_CHECK_SHAPES): the serving block (B=1, R=4096,
      48+48 samples, no noise), the training microbatch (B=6, R=1024,
-     24+24, sigma noise), a ragged shape, a block of invert's eval render
+     24+24, sigma noise), a ragged shape, the 64^2 stage's G microbatch
+     (B=12, R=4096, 24+24, sigma noise), a block of invert's eval render
      (B=1, R=8192, 48+48), render_video's film block (B=1, R=4096, 24+24,
      C=22) and the grid family's video and sheet blocks (C=4 outputs,
      24+24 and 48+48), each without a fill (as the render hands them) and,
@@ -111,8 +116,10 @@ Phases (any failure exits non-zero):
      through its plain version; the ray kernels' render against the torch
      route's; ray-chunked against whole-image rendering on both routes;
   7. the backward kernels against their plain version at the G-phase shape
-     (B=6, N=32x32x24), a ragged one and B=2, N=20000 (more tiles than
-     SMs, N not a multiple of the tile), per output group
+     (B=6, N=32x32x24), a ragged one, B=2, N=20000 (more tiles than
+     SMs, N not a multiple of the tile) and the 64^2 stage's G microbatch
+     (B=12, N=64x64x24: 1,179,648 rows, with the peak device memory of the
+     kernel's calls), per output group
      (ops/film_mlp_grad.py::bwd_agreement), bitwise equal from run to
      run, their times and as context_ms the recompute, dX and dW bf16
      products through torch.matmul;
@@ -126,6 +133,25 @@ Phases (any failure exits non-zero):
      field's vector-Jacobian product at the G shape, held to the JAX
      package's criterion; and, printed as context, whole G-microbatch
      render gradients at the initial and the trained state;
+ 9b. the trainer's CLI (apps.train.main in this process): the codec
+     built here against the fixture set's decoded.sha256; a synthetic
+     CelebAMask-HQ tree (the 8 committed 1024^2 JPEGs in turn, 48 pairs,
+     512^2 label PNGs from the port's encoder); stage 0 of the flagship
+     curriculum (bs 24, split 4, 32^2) for 6 steps with checkpoints and
+     samples every 3 and the FID protocol at step 6 (64 EMA renders at
+     128^2, the real dump, InceptionV3 on stand-in weights), then
+     --load_dir on the same directory to step 8, then the 64^2 stage
+     (--set_step 20000, bs 48, split 4) for 4 steps with the ray kernels
+     on, then stage 0 for 2 steps with --grad_rays 0.5 and DiffAugment
+     ("color,translation,cutout"); finite losses, the launches of every
+     kernel per run (no plain version), the resume at step 6, a G
+     microbatch's grad_rays render on the kernels equal to the
+     grad_rays = 1 render (1e-6), a finite FID, the real dump against
+     itself below 1e-3, Inception features on the card against the CPU;
+     ms/step (the CLI's step window, its wait for data included) and
+     images/s at 32^2 and 64^2, the loader's host ms per batch, ms per
+     rendered and per Inception-scored image, the Frechet distance's
+     seconds, peak memory;
  10. the ceiling probes: the three probe scripts at their full shapes (3 timed
      calls per variant; every probe kernel launched, no plain version
      called), then each probe kernel against its plain version at those
@@ -141,17 +167,19 @@ Phases (any failure exits non-zero):
      calls in a row, printed as context).
 
 Prints each phase's seconds, the card line, a JSON line of per-kernel
-results and, last, {"ok": true, "device": {...}}. Exits non-zero without
-CUDA.
+results (launches per main path, launches_train_cli among them) and, last,
+{"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import importlib.util
 import json
 import math
 import os
 import re
+import signal
 import statistics
 import struct
 import sys
@@ -198,13 +226,19 @@ def phase_card():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    from fenerf_tpu_torch.data import native_loader
+
     t0 = time.perf_counter()
-    build.build(build.KERNELS)
+    with ThreadPoolExecutor(1) as pool:
+        # the host codec (c++) beside the nvcc builds
+        codec = pool.submit(native_loader.library)
+        build.build(build.KERNELS)
+        codec.result()
     for mod in (film_mlp, film_mlp_grad, ray_finalize, zexp_fold, mxu_chain,
                 dma_gather):
         mod._load_library()
     mxu_chain._load_library("mxu_wide")
-    log(f"[build] {', '.join(build.KERNELS)} ready in "
+    log(f"[build] {', '.join(build.KERNELS)} and the host codec ready in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, out in build.BUILD_LOG.items():
         # ptxas notes of each wgmma.fence it inserts would drown the rest
@@ -524,6 +558,7 @@ LIBRARY_FOLD_TOL = 1e-5
 RAY_CHECK_SHAPES = (
     (*RAY_SHAPES[0], N_OUT, (None, "seg_padding_background")),
     *((*shape, N_OUT, (None,)) for shape in RAY_SHAPES[1:]),
+    ("64^2 training", 12, 4096, 24, True, N_OUT, (None,)),
     ("invert eval", 1, 8192, 48, False, N_OUT,
      (None, "eval_seg_padding_background")),
     ("film video", 1, 4096, 24, False, N_OUT,
@@ -981,10 +1016,15 @@ def _bwd_case(cfg, params, pack, gen, b, n, dev, tag="[backward]") -> dict:
     gf = fields._grid_feats(params, warped, torch.bfloat16)
     g_out = torch.randn(b, n, cfg.output_dim, generator=gen, device=dev)
     args = (pack, warped, dirs, gf, fg, fa, g_out)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     out = gops.film_mlp_bwd(*args)
     again = gops.film_mlp_bwd(*args)
     # timed before the plain version fills the allocator's cache
     ms = time_ms(lambda: gops.film_mlp_bwd(*args), iters=5)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the plain version at 1.2M rows holds ~42 GiB of per-row state
+    torch.cuda.empty_cache()
     ref = gops.film_mlp_bwd_reference(*args)
     torch.cuda.synchronize()
     groups = gops.bwd_agreement(out, ref)
@@ -1012,7 +1052,8 @@ def _bwd_case(cfg, params, pack, gen, b, n, dev, tag="[backward]") -> dict:
         f"{worst_cos[2]:.7f} ({worst_cos[0]}) (limits {gops.BWD_TOL}, "
         f"per-point groups {gops.BWD_TOL_PER_POINT}, cos > "
         f"{gops.BWD_COS}); bitwise equal run to run {bitwise}; kernel "
-        f"{ms:.3f} ms plain {plain_ms:.3f} ms, "
+        f"{ms:.3f} ms plain {plain_ms:.3f} ms, peak device memory of the "
+        f"kernel's calls {peak_gib:.2f} GiB, "
         f"{rows / ms / 1e3:.2f} Mpts/s, {flops / ms / 1e9:.1f} TFLOP/s "
         f"({bound / ms:.1%} of the bound), bound {bound:.3f} ms ({by}); "
         f"context: the same {len(_bwd_products(pack, rows))} bf16 "
@@ -1030,7 +1071,7 @@ def _bwd_case(cfg, params, pack, gen, b, n, dev, tag="[backward]") -> dict:
                 for x, y in zip(xs, ys)),
             "max_rel_err": worst_rel[1], "min_cos": worst_cos[2], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "context_ms": context, "bitwise": bitwise}
+            "context_ms": context, "bitwise": bitwise, "peak_gib": peak_gib}
 
 
 def phase_backward(dev) -> dict:
@@ -1045,10 +1086,11 @@ def phase_backward(dev) -> dict:
     cfg, params, gen = _flagship_params(dev, seed=3)
     params = fields.with_grid_table(params, cfg, torch.bfloat16)
     pack = gops.pack_bwd(params, cfg)
-    # the G shape, a ragged one, and one with more tiles than SMs and
-    # N % 128 != 0
+    # the G shape, a ragged one, one with more tiles than SMs and
+    # N % 128 != 0, and the 64^2 stage's G microbatch (1,179,648 rows)
     shapes = [_bwd_case(cfg, params, pack, gen, b, n, dev)
-              for b, n in ((6, 32 * 32 * 24), (2, 1000), (2, 20000))]
+              for b, n in ((6, 32 * 32 * 24), (2, 1000), (2, 20000),
+                           (12, 64 * 64 * 24))]
     return {**shapes[0], **{k: max(s[k] for s in shapes) for k in
                             ("max_abs_err", "max_rel_err")},
             "min_cos": min(s["min_cos"] for s in shapes), "library_ms": None,
@@ -1128,6 +1170,297 @@ def phase_train(dev, ray_on: bool):
         raise AssertionError(f"training did not run through the kernels "
                              f"alone: expected {per_step} per step")
     return {"launches": counts, "ms_per_step": ms}, state
+
+
+# the trainer's entry point (fenerf_tpu_torch.apps.train) on a synthetic
+# CelebAMask-HQ tree: the committed fixture JPEGs (1024^2, 4:2:0) in turn,
+# 48 pairs (the 64^2 stage's batch), 512^2 label PNGs
+TRAIN_CLI_PAIRS = 48
+TRAIN_CLI = ["--curriculum", TEXTURE, "--log_every", "1", "--device", "cuda"]
+STAGE0 = ["--total_steps", "6", "--model_save_interval", "3",
+          "--sample_interval", "3", "--eval_freq", "6", "--num_eval_imgs",
+          "64", "--num_real_imgs", "64"]
+RESUMED = ["--total_steps", "8", "--model_save_interval", "3",
+           "--sample_interval", "3", "--eval_freq", "6"]
+STAGE64 = ["--set_step", "20000", "--total_steps", "20004",
+           "--model_save_interval", "4", "--sample_interval", "4",
+           "--eval_freq", "0"]
+# stage 0 with the G phase's gradients on half of its rays and DiffAugment
+# on the image critic's inputs
+GRAD_RAYS = 0.5
+AUGMENTED = ["--total_steps", "2", "--model_save_interval", "0",
+             "--sample_interval", "0", "--eval_freq", "0", "--grad_rays",
+             str(GRAD_RAYS), "--stage_overrides",
+             json.dumps({"diff_augment_policy": "color,translation,cutout"})]
+# the grad_rays render's pixels against the grad_rays = 1 render's on the
+# same draws: the same rows through the same kernels, in another grouping
+GRAD_RAYS_TOL = 1e-6
+# a sample or eval render: 128^2 in ray blocks of 4096, a field evaluation
+# before and after the resample per block; eval renders in batches of 16
+EVAL_BLOCKS = 128 * 128 // 4096
+# Inception features, card against the port on the CPU, relative to each
+# row's largest feature: f32 convolutions with TF32 off, another order
+INCEPTION_TOL = 1e-4
+# the real dump scored against itself
+SELF_FID_TOL = 1e-3
+
+
+class _Tee:
+    """stdout to the terminal and a buffer (the CLI's [eval-t] lines)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _expected_launches(steps, split, samples, eval_images, ray_on,
+                       grad_rays=False):
+    """Launches of a CLI run: per step 2 field evaluations in each of the
+    3 x split renders (D_img, D_seg and G microbatches), the backward twice
+    per G microbatch, one fold; 5 renders per sample event and one per 16
+    eval images, EVAL_BLOCKS ray blocks each; the ray kernels once per
+    block with the switch on. With grad_rays < 1 each G render shades its
+    rays in two blocks, the subset (forward and backward kernels) and the
+    rest (forward kernel only)."""
+    renders = samples * 5 + math.ceil(eval_images / 16)
+    blocks = (steps * 3 * split + renders * EVAL_BLOCKS
+              + grad_rays * steps * split)
+    return {"film_mlp": 2 * blocks, "film_mlp_bwd": 2 * split * steps,
+            "fold_zexp": steps, "ray_resample": ray_on * blocks,
+            "ray_finalize": ray_on * blocks}
+
+
+def _grad_rays_render(state, meta, dev) -> float:
+    """A G microbatch's render on the kernels at the CLI's grad_rays, with
+    the trained parameters: the subset through kernel_train, the rest under
+    no_grad on the forward kernel; returns its pixels' largest distance
+    from the grad_rays = 1 render on the same draws."""
+    import dataclasses
+
+    from fenerf_tpu_torch.compat.jax_bridge import tree_leaves
+    from fenerf_tpu_torch.models import generator as gen
+
+    fcfg = meta.field_config()
+    rcfg = dataclasses.replace(meta.render_config(), backend="kernel_train",
+                               grad_rays=GRAD_RAYS)
+    b = meta.batch_size // meta.batch_split
+    g = torch.Generator(device=dev).manual_seed(11)
+    zg = torch.randn(b, fcfg.z_geo_dim, generator=g, device=dev)
+    za = torch.randn(b, fcfg.z_app_dim, generator=g, device=dev)
+    noise = meta.nerf_noise(0)
+    draws = gen.draw_render(g, b, rcfg, noise, rcfg.sample_dist, dev)
+    params = state.g_params
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    try:
+        out = gen.render_from_z(params, fcfg, rcfg, zg, za, noise,
+                                draws=draws)
+        n_grad = int(out["grad_ray_mask"].sum())
+        if not 0 < n_grad < rcfg.n_rays:
+            raise AssertionError(f"grad_rays {GRAD_RAYS}: {n_grad} of "
+                                 f"{rcfg.n_rays} rays carry gradients")
+        with torch.no_grad():
+            full = gen.render_from_z(
+                params, fcfg, dataclasses.replace(rcfg, grad_rays=1.0), zg,
+                za, noise, draws=draws)
+    finally:
+        for t in tree_leaves(params):
+            t.requires_grad_(False)
+    return float((out["pixels"].detach() - full["pixels"]).abs().max())
+
+
+def phase_train_cli(dev) -> dict:
+    """The trainer's CLI in this process: stage 0 with samples, checkpoints
+    and the FID protocol on stand-in InceptionV3 weights; --load_dir on the
+    same directory for 2 more steps; the 64^2 stage by --set_step with the
+    ray kernels on; stage 0 again with --grad_rays and DiffAugment. Checks
+    the card-built decoder against the fixture digests, finite losses, the
+    launches of every kernel per run (no plain version), the resume step,
+    the grad_rays render's pixels, a finite FID, the real dump's FID
+    against itself and Inception features against the CPU. Returns the
+    launches of the four runs and the numbers it printed."""
+    from fenerf_tpu_torch.apps import train as train_cli
+    from fenerf_tpu_torch.data import native_loader, synthetic
+    from fenerf_tpu_torch.eval import fid as fidlib
+    from fenerf_tpu_torch.nn import inception
+    from fenerf_tpu_torch.train.curriculum import CURRICULA
+
+    digests = synthetic.fixture_digests()
+    fixtures = [str(synthetic.FIXTURES / n) for n in sorted(digests)]
+    t0 = time.perf_counter()
+    for name, path in zip(sorted(digests), fixtures):
+        got = hashlib.sha256(
+            native_loader.read_image(path, "RGB").tobytes()).hexdigest()
+        if got != digests[name]:
+            raise AssertionError(f"the decoder built here decodes {name} "
+                                 f"unlike PIL (sha256 {got})")
+    log(f"[train cli] the codec built on this machine decodes all "
+        f"{len(fixtures)} fixture JPEGs (1024^2, 4:2:0) to PIL's pixels "
+        f"(decoded.sha256), {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    cur = CURRICULA[TEXTURE]
+    results = {"launches": {}}
+    old_weights = os.environ.get(fidlib.WEIGHTS_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = synthetic.write_celebamask_tree(
+            os.path.join(tmp, "celebamask"), fixtures, count=TRAIN_CLI_PAIRS)
+        weights = os.path.join(tmp, "inception.npz")
+        inception.export_npz(inception.init_inception(
+            torch.Generator().manual_seed(0)), weights)
+        os.environ[fidlib.WEIGHTS_ENV] = weights
+        out0, out64, out_aug = (os.path.join(tmp, d)
+                                for d in ("run", "run64", "run_aug"))
+        runs = (("stage 0", out0, STAGE0, "never", 6, 3, 2, 64),
+                ("resumed", out0, RESUMED + ["--load_dir", out0], "never",
+                 2, 3, 0, 0),
+                ("64^2", out64, STAGE64, "auto", 4, 4, 1, 0),
+                ("grad_rays", out_aug, AUGMENTED, "never", 2, 0, 0, 0))
+        try:
+            for tag, out, extra, ray, steps, every, samples, n_eval in runs:
+                tee = _Tee(sys.stdout)
+                zero_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with ray_kernels(ray), contextlib.redirect_stdout(tee):
+                    state = train_cli.main(
+                        TRAIN_CLI + ["--data_root", root, "--output_dir",
+                                     out] + extra)
+                seconds = time.perf_counter() - t0
+                counts, plain = read_counts()
+                meta = cur.at_step(20000 if tag == "64^2" else 0)
+                want = _expected_launches(steps, meta.batch_split, samples,
+                                          n_eval, int(ray == "auto"),
+                                          grad_rays=tag == "grad_rays")
+                results["launches"][tag] = counts
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                text = "".join(tee.lines)
+                log(f"[train cli] {tag}: {seconds:.1f} s, launches {counts}, "
+                    f"plain-version calls {plain}, peak device memory "
+                    f"{peak:.2f} GiB")
+                if counts != {k: want.get(k, 0) for k in counts} or plain:
+                    raise AssertionError(
+                        f"train cli {tag}: launches {counts}, plain {plain}; "
+                        f"expected {want}")
+                results[tag] = {"seconds": seconds, "peak_gib": peak,
+                                "stdout": text}
+            logs = {}
+            for tag, out in (("stage 0", out0), ("64^2", out64),
+                             ("grad_rays", out_aug)):
+                with open(os.path.join(out, "metrics.jsonl")) as f:
+                    logs[tag] = [json.loads(x) for x in f]
+            steps0 = [x["step"] for x in logs["stage 0"]]
+            if steps0 != list(range(8)) or "at step 6" not in \
+                    results["resumed"]["stdout"]:
+                raise AssertionError(f"the resumed run did not start at step "
+                                     f"6: logged steps {steps0}")
+            if [x["step"] for x in logs["64^2"]] != list(range(20000, 20004)):
+                raise AssertionError("the 64^2 run logged the wrong steps")
+            if [x["step"] for x in logs["grad_rays"]] != [0, 1]:
+                raise AssertionError("the grad_rays run logged the wrong "
+                                     "steps")
+            losses = ("d_img_loss", "d_seg_loss", "g_loss")
+            for tag, lines in logs.items():
+                for x in lines:
+                    if not all(math.isfinite(x[k]) for k in losses):
+                        raise AssertionError(f"{tag}: non-finite loss at "
+                                             f"step {x['step']}: {x}")
+                    log(f"[train cli] {tag} step {x['step']}: " + " ".join(
+                        f"{k} {x[k]:.4f}" for k in losses)
+                        + f", step {x['step_ms']:.1f} ms, loader "
+                        f"{x['loader_ms']:.1f} ms per batch, waited "
+                        f"{x['data_wait_ms']:.1f} ms")
+            # `state` is the grad_rays run's, the last; after the run, so
+            # these launches stay out of its counts
+            err = _grad_rays_render(state, cur.at_step(0), dev)
+            log(f"[train cli] grad_rays {GRAD_RAYS} render of a G microbatch"
+                f" on the kernels against grad_rays 1 on the same draws: "
+                f"max|diff| {err:.3e} (tol {GRAD_RAYS_TOL})")
+            if not err <= GRAD_RAYS_TOL:
+                raise AssertionError("the grad_rays render's pixels differ")
+            with open(os.path.join(out0, "fid.txt")) as f:
+                fid = float(f.read().strip().split(":")[-1])
+            if not math.isfinite(fid):
+                raise AssertionError(f"fid.txt holds {fid}")
+            # the real dump against itself, the protocol's two parts timed
+            # apart: Inception on the card, the Frechet distance's sqrtm of
+            # 2048^2 on the host
+            real = os.path.join(out0, "evaluation", "real")
+            feats = fidlib.inception_features(device="cuda")
+            imgs = fidlib._load_images(real)
+            feats(imgs[:4])      # the first call builds cuDNN's plans
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f_real = np.asarray(feats(imgs))
+            inception_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+            t0 = time.perf_counter()
+            self_fid = fidlib.fid_from_features(f_real, f_real)
+            frechet_s = time.perf_counter() - t0
+            f_card = f_real[:4]
+            f_cpu = fidlib.inception_features(device="cpu")(imgs[:4])
+            rel = float((np.abs(f_card - f_cpu).max(axis=1)
+                         / np.abs(f_cpu).max(axis=1)).max())
+            log(f"[train cli] FID at step 6 (stand-in weights) {fid:.4f}; "
+                f"the real dump against itself {self_fid:.3e} (tol "
+                f"{SELF_FID_TOL}); Inception features, card vs CPU, 4 "
+                f"images: max|diff|/max|cpu| per row {rel:.3e} (tol "
+                f"{INCEPTION_TOL})")
+            if not abs(self_fid) < SELF_FID_TOL or not rel <= INCEPTION_TOL:
+                raise AssertionError("FID protocol check failed")
+        finally:
+            if old_weights is None:
+                os.environ.pop(fidlib.WEIGHTS_ENV, None)
+            else:
+                os.environ[fidlib.WEIGHTS_ENV] = old_weights
+
+    def eval_t(key):
+        m = re.search(rf"\[eval-t\] {key}=([0-9.]+) images=(\d+)",
+                      results["stage 0"]["stdout"])
+        return float(m.group(1)), int(m.group(2))
+
+    render_s, n_render = eval_t("output_images_s")
+    score_s, n_scored = eval_t("calculate_fid_s")
+    workers = max(1, min((os.cpu_count() or 2) - 1, 8))
+    # each run's first step waits for the loader's first batch
+    firsts = (0, 6, 20000)
+    for size, tag, bs in ((32, "stage 0", cur.at_step(0).batch_size),
+                          (64, "64^2", cur.at_step(20000).batch_size),
+                          (32, "grad_rays", cur.at_step(0).batch_size)):
+        lines = [x for x in logs[tag] if x["step"] not in firsts]
+        ms = statistics.median(x["step_ms"] for x in lines)
+        loader = statistics.median(x["loader_ms"] for x in logs[tag])
+        key = f"{size}" if tag != "grad_rays" else "32_grad_rays"
+        results[f"ms_per_step_{key}"] = ms
+        results[f"imgs_per_s_{key}"] = bs / ms * 1e3
+        results[f"loader_ms_{key}"] = loader
+        log(f"[train cli] {tag}, {size}^2 (bs {bs}): {ms:.1f} ms/step (the "
+            f"CLI's step window, its wait for data included; median of "
+            f"{len(lines)} steps, range "
+            f"{min(x['step_ms'] for x in lines):.1f}-"
+            f"{max(x['step_ms'] for x in lines):.1f}), {bs / ms * 1e3:.2f} "
+            f"images/s; the loader's host time {loader:.1f} ms per batch "
+            f"(median) in one of {workers} worker processes, "
+            f"{loader / workers:.1f} ms per batch across them")
+    results["inception_ms_per_image"] = inception_ms
+    results["frechet_s"] = frechet_s
+    log(f"[train cli] FID block: {render_s / n_render * 1e3:.2f} ms per "
+        f"rendered image ({n_render} at 128^2); Inception "
+        f"{inception_ms:.2f} ms per image ({len(imgs)} at 128^2, one batch);"
+        f" the Frechet distance (host sqrtm of 2048^2) {frechet_s:.2f} s; "
+        f"the CLI's calculate_fid {score_s:.2f} s for {n_scored} images; "
+        f"peak device memory {results['stage 0']['peak_gib']:.2f} / "
+        f"{results['64^2']['peak_gib']:.2f} / "
+        f"{results['grad_rays']['peak_gib']:.2f} GiB (stage 0 / 64^2 / "
+        f"grad_rays)")
+    for tag in ("stage 0", "resumed", "64^2", "grad_rays"):
+        del results[tag]["stdout"]
+    return results
 
 
 def _grad_compare(x, y):
@@ -2187,14 +2520,39 @@ def phase_grid_apps(ckpt, tmp) -> dict:
             "serve_ms": dt * 1e3}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
-              file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+def _children(pid: int) -> list[int]:
+    """The processes whose parent is `pid`, zombies included (/proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            stat = Path("/proc", entry, "stat").read_text()
+        except OSError:   # it ended while we looked
+            continue
+        if int(stat.rpartition(")")[2].split()[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+def stop_helper_processes() -> None:
+    """Stops every process this script started, waiting for each: the fork
+    server the training loader's workers come from and multiprocessing's
+    resource tracker (left alone, both outlive the script while they shut
+    down), then any other child still there."""
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    for pid in _children(os.getpid()):
+        log(f"[exit] stopping leftover child process {pid}")
+        with contextlib.suppress(ProcessLookupError, ChildProcessError):
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+
+
+def run_phases(dev: torch.device) -> dict:
+    """Every phase in turn; -> the kernels line."""
     from fenerf_tpu_torch.train.curriculum import CURRICULA
 
     t_all = time.perf_counter()
@@ -2246,6 +2604,7 @@ def main() -> int:
     train_on, _ = timed("train", phase_train, dev, ray_on=True)
     log(f"[train] ms/step, ray kernels off / on: "
         f"{train_off['ms_per_step']:.1f} / {train_on['ms_per_step']:.1f}")
+    train_cli = timed("train cli", phase_train_cli, dev)
     timed("grad", phase_grad, dev, CURRICULA[TEXTURE].at_step(0),
           (trained, TRAIN_STEPS))
     probe_launches, probe_results = timed("probe scripts",
@@ -2258,8 +2617,9 @@ def main() -> int:
         """Launches on the main paths: serving (both ray routes), training
         (ray kernels off and on), multiview sheets (both ray routes), the
         inversion (with its warm start and its video), video (the grid
-        family on both ray routes, the film family on the kernels) and the
-        grid family's multiview sheet."""
+        family on both ray routes, the film family on the kernels), the
+        grid family's multiview sheet and the trainer's CLI (stage 0, its
+        resume and the 64^2 stage)."""
         by_path = {"serve": sum(r["launches"][name] for r in serve.values()),
                    "train": (train_off["launches"][name]
                              + train_on["launches"][name]),
@@ -2269,7 +2629,9 @@ def main() -> int:
                    "video": (sum(r[name] for r in
                                  grid_video["launches"].values())
                              + film_video["launches"][name]),
-                   "grid_multiview": grid_apps["launches"][name]}
+                   "grid_multiview": grid_apps["launches"][name],
+                   "train_cli": sum(r.get(name, 0) for r in
+                                    train_cli["launches"].values())}
         return {"launches": sum(by_path.values()),
                 **{f"launches_{k}": v for k, v in by_path.items()}}
 
@@ -2281,7 +2643,7 @@ def main() -> int:
         return {"headers": re.findall(r'^#include "(\S+\.cuh)"', text,
                                       re.M)}
 
-    print(json.dumps({"kernels": [
+    return {"kernels": [
         {"name": "film_mlp", "route": "cuda", "source": src + "film_mlp.cu",
          "replaces": "fenerf_tpu/ops/film_mlp.py:128",
          **headers("film_mlp.cu"), **launches("film_mlp"), **kern},
@@ -2309,7 +2671,28 @@ def main() -> int:
             ("run_epi", "mxu_chain.cu",
              "scripts/profile_epilogue_overlap.py:53"),
             ("ring_dma_gather", "dma_gather.cu",
-             "scripts/profile_dma_gather.py:55"))]}))
+             "scripts/profile_dma_gather.py:55"))]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the training loader's DataLoader workers fork from multiprocessing's
+    # fork server; with the loader's module (and so torch) loaded there
+    # once, each worker starts in a fraction of a second, not seconds
+    import multiprocessing
+
+    multiprocessing.set_forkserver_preload(
+        ["fenerf_tpu_torch.data.celeba_mask"])
+    try:
+        kernels = run_phases(torch.device("cuda"))
+    finally:
+        stop_helper_processes()
+    print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """The volumetric generator (port of fenerf_tpu/models/generator.py:
-render_core, render, render_from_z, render_truncated and the shape
+render_core with its gradient subset of rays (_shade_grad_subset), render, render_from_z, render_truncated and the shape
 extraction's voxel_points and eval_volume for the FiLM-SIREN family;
 render_grid_from_z and eval_volume_grid for the latent-grid family; the
 family dispatch get_any_config / init_any_field / render_any).
@@ -66,6 +66,12 @@ class RenderConfig:
                                 # 'kernel_train' => fused forward + backward
                                 # (ops/film_mlp_grad.py)
     remat: bool = False         # torch route: recompute the field in backward
+    grad_rays: float = 1.0      # fraction of rays whose pixels carry
+                                # gradients (< 1: training only; every ray
+                                # renders, a random chunk-aligned subset
+                                # runs the differentiable path, the rest
+                                # under no_grad; the pixels equal the
+                                # grad_rays = 1 render)
 
     @property
     def n_rays(self) -> int:
@@ -86,6 +92,8 @@ class RenderDraws(NamedTuple):
     cam_h: torch.Tensor | None   # (B, 1) camera yaw draw
     cam_v: torch.Tensor | None   # (B, 1) camera pitch draw
     noise: RayNoise
+    ray_perm: torch.Tensor | None = None  # (R,) permutation of the rays
+                                          # (grad_rays < 1 only)
 
 
 def _noise_is_dead(noise_std) -> bool:
@@ -123,7 +131,9 @@ def draw_render(gen: torch.Generator, batch: int, rcfg: RenderConfig,
         cam_h = draw((batch, 1), generator=gen, device=device)
         cam_v = draw((batch, 1), generator=gen, device=device)
     noise = draw_ray_noise(gen, batch, rcfg.n_rays, rcfg, noise_std, device)
-    return RenderDraws(jitter, cam_h, cam_v, noise)
+    perm = (torch.randperm(rcfg.n_rays, generator=gen, device=device)
+            if rcfg.grad_rays < 1.0 else None)
+    return RenderDraws(jitter, cam_h, cam_v, noise, perm)
 
 
 RAY_KERNEL_MODES = ("never", "auto")
@@ -266,6 +276,42 @@ def _shade_chunked(field_fn, output_dim, rcfg, origins, dirs, z_vals,
     return tuple(torch.cat(ts, dim=1) for ts in zip(*parts))
 
 
+def _shade_grad_subset(field_fn, output_dim, rcfg, perm, origins, dirs,
+                       z_vals, noise: RayNoise, noise_std):
+    """Shade with gradients restricted to a grad_rays fraction of the rays
+    (the reference's part_forward, generators.py:858-910, as the JAX
+    package recasts it): permute the ray axis by `perm`, shade the first
+    n_grad rays (a multiple of ray_chunk) on the differentiable path and
+    the rest under no_grad (on the card: the forward kernel alone), then
+    undo the permutation. Each ray's math is independent of the others, so
+    the pixels equal the grad_rays = 1 render.
+
+    Returns (comp, depth, weights_sum, grad_mask), grad_mask (R,) bool in
+    the original ray order (True: the ray's pixel carries gradients)."""
+    r = z_vals.shape[1]
+    q = rcfg.ray_chunk if (rcfg.ray_chunk and rcfg.ray_chunk < r) else 1
+    n_grad = int(round(rcfg.grad_rays * r))
+    n_grad = min(r - q, max(q, (n_grad // q) * q))  # chunk-aligned, 0<ng<r
+    inv = torch.argsort(perm)
+    permute = lambda t: None if t is None else t[:, perm]
+    args = ([permute(t) for t in (origins, dirs, z_vals)],
+            RayNoise(*(permute(t) for t in noise)))
+
+    def part(a, b):
+        sl = lambda t: None if t is None else t[:, a:b]
+        o, d, zv = (sl(t) for t in args[0])
+        return _shade_chunked(field_fn, output_dim, rcfg, o, d, zv,
+                              RayNoise(*(sl(t) for t in args[1])),
+                              noise_std)
+
+    out_g = part(0, n_grad)
+    with torch.no_grad():
+        out_s = part(n_grad, r)
+    comp, depth, wsum = (torch.cat([a, b], dim=1)[:, inv]
+                         for a, b in zip(out_g, out_s))
+    return comp, depth, wsum, inv < n_grad
+
+
 def _film_field_fn(params, fcfg, rcfg: RenderConfig, film_geo, film_app):
     compute_dtype = (torch.bfloat16 if rcfg.compute_dtype == "bfloat16"
                      else torch.float32)
@@ -303,7 +349,9 @@ def render_core(field_fn, output_dim: int, rcfg: RenderConfig,
     they come from `generator` (default: seeded 0) on `device`.
 
     Returns pixels (B, C, H, W) in [-1, 1], depth (B, H, W), opacity
-    (B, H, W) and position (B, 2) = sampled (pitch, yaw)."""
+    (B, H, W) and position (B, 2) = sampled (pitch, yaw); with
+    rcfg.grad_rays < 1 also grad_ray_mask (H, W), True where a pixel
+    carries gradients."""
     if camera is not None:
         pitch, yaw, fov = camera
         h_mean, v_mean = yaw, pitch
@@ -327,19 +375,30 @@ def render_core(field_fn, output_dim: int, rcfg: RenderConfig,
         batch_size, dirs_cam, z0, h_stddev, v_stddev, h_mean, v_mean,
         mode=sample_dist, jitter=draws.jitter if rcfg.perturb else None,
         cam_h=draws.cam_h, cam_v=draws.cam_v)
-    comp, depth, weights_sum = _shade_chunked(
-        field_fn, output_dim, rcfg, tr.ray_origins, tr.ray_dirs, tr.z_vals,
-        draws.noise, noise_std)
+    grad_mask = None
+    if rcfg.grad_rays < 1.0:
+        if draws.ray_perm is None:
+            raise ValueError("grad_rays < 1 needs draws.ray_perm")
+        comp, depth, weights_sum, grad_mask = _shade_grad_subset(
+            field_fn, output_dim, rcfg, draws.ray_perm, tr.ray_origins,
+            tr.ray_dirs, tr.z_vals, draws.noise, noise_std)
+    else:
+        comp, depth, weights_sum = _shade_chunked(
+            field_fn, output_dim, rcfg, tr.ray_origins, tr.ray_dirs,
+            tr.z_vals, draws.noise, noise_std)
     comp = _finalize_comp(comp, weights_sum, rcfg)
     hw = rcfg.img_size
     pixels = (comp.reshape(batch_size, hw, hw, -1).permute(0, 3, 1, 2)
               * 2.0 - 1.0)
-    return {
+    out = {
         "pixels": pixels,
         "depth": depth.reshape(batch_size, hw, hw),
         "opacity": weights_sum.reshape(batch_size, hw, hw),
         "position": torch.cat([tr.pitch, tr.yaw], dim=-1),
     }
+    if grad_mask is not None:
+        out["grad_ray_mask"] = grad_mask.reshape(hw, hw)
+    return out
 
 
 def render(params, fcfg: fields.FieldConfig, rcfg: RenderConfig, film_geo,

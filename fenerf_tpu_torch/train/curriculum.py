@@ -76,11 +76,11 @@ class StageMeta:
     # torch route: recompute the field in the G backward (the kernel route
     # saves only its inputs anyway)
     remat: bool = False
-    # gradient-subset-of-rays fraction for the G phase (< 1.0 enables; not
-    # ported, the trainer refuses it)
+    # gradient-subset-of-rays fraction for the G phase (< 1.0 enables;
+    # models/generator.py::_shade_grad_subset)
     grad_rays: float = 1.0
-    # DiffAugment policy of the discriminator inputs ('' = off; not ported,
-    # the trainer refuses it)
+    # DiffAugment policy of the image critic's inputs ('' = off;
+    # train/diff_augment.py)
     diff_augment_policy: str = ""
     # run the G phase (and the D-phase fakes) over the full batch at once
     # while computing the exact split-structured objective (per-chunk topk +

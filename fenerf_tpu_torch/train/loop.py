@@ -14,6 +14,11 @@ One call is one optimizer step of each of the three networks:
     ceil(frac * chunk) best fakes of each chunk; then one Adam step and
     both EMA updates. On the card G's renders run through the fused
     forward and backward kernels (backend 'kernel_train').
+  * With a DiffAugment policy (meta.diff_augment_policy) D_img's reals
+    and fakes take one augmentation and each G microbatch's fakes one of
+    their own before the image critic, never the seg critic's inputs;
+    with meta.grad_rays < 1 G's render differentiates a random
+    chunk-aligned subset of its rays (models/generator.py).
 
 The texture table is built once per step and shared by every render of
 the step; in the G phase it is a leaf of its own, whose cotangent is
@@ -41,6 +46,8 @@ from fenerf_tpu_torch.nn import discriminators as disc
 from fenerf_tpu_torch.nn import fields
 from fenerf_tpu_torch.ops import film_mlp
 from fenerf_tpu_torch.train import ema as emalib
+from fenerf_tpu_torch.train.diff_augment import (diff_augment,
+                                                 make_augment_draws)
 from fenerf_tpu_torch.train.curriculum import StageMeta
 
 Params = Any
@@ -58,6 +65,10 @@ class AdamState(NamedTuple):
     count: int
     mu: Params
     nu: Params
+    # top-level keys with a scaled learning rate (Optimizer.lr_mult): the
+    # JAX package keeps them in an optax partition of their own, which
+    # its checkpoint layout follows (utils/checkpoint.py)
+    split: tuple = ()
 
 
 class TrainState(NamedTuple):
@@ -74,13 +85,18 @@ class TrainState(NamedTuple):
 
 class StepDraws(NamedTuple):
     """Every random number of one step: each phase's latents (z_geo, z_app)
-    and the RenderDraws of each of its renders (one per microbatch)."""
+    and the RenderDraws of each of its renders (one per microbatch; G's
+    carry the ray permutation when grad_rays < 1), and with a DiffAugment
+    policy the draws of D_img's augmentation (reals and fakes alike) and
+    of each G microbatch's (train/diff_augment.py)."""
     z_img: tuple
     fakes_img: list
     z_seg: tuple | None
     fakes_seg: list | None
     z_g: tuple
     g_renders: list
+    aug_d: list | None = None
+    aug_g: list | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +131,9 @@ class Optimizer:
 
     def init(self, params: Params) -> AdamState:
         zeros = lambda t: torch.zeros_like(t, dtype=torch.float32)
-        return AdamState(0, tree_map(zeros, params), tree_map(zeros, params))
+        mult = dict(self.lr_mult)
+        return AdamState(0, tree_map(zeros, params), tree_map(zeros, params),
+                         tuple(sorted(k for k in params if k in mult)))
 
     @torch.no_grad()
     def step(self, params: Params, grads: Params,
@@ -149,7 +167,7 @@ class Optimizer:
                 v.mul_(b2).add_((1.0 - b2) * (g * g))
                 upd = (m / c1) / (torch.sqrt(v / c2) + 1e-8)
                 p.add_(-lr * upd)
-        return AdamState(count, state.mu, state.nu)
+        return AdamState(count, state.mu, state.nu, state.split)
 
 
 _MAP_KEYS = ("geo_map", "app_map", "map")
@@ -217,18 +235,27 @@ def make_step_draws(generator: torch.Generator, meta: StageMeta, batch: int,
         return tuple(torch.randn(sh, generator=generator, device=device)
                      for sh in shapes)
 
-    def renders(n):
-        return [gen.draw_render(generator, batch // n, rcfg, noise_std,
-                                rcfg.sample_dist, device) for _ in range(n)]
+    def renders(n, cfg=rcfg):
+        return [gen.draw_render(generator, batch // n, cfg, noise_std,
+                                cfg.sample_dist, device) for _ in range(n)]
 
-    n_fake = 1 if meta.full_batch else s
-    z_img, f_img = z(), renders(n_fake)
+    n = 1 if meta.full_batch else s
+    z_img, f_img = z(), renders(n)
     has_seg = meta.output_dim > 4
     z_seg = z() if has_seg else None
-    f_seg = renders(n_fake) if has_seg else None
+    f_seg = renders(n) if has_seg else None
     z_g = z()
-    return StepDraws(z_img, f_img, z_seg, f_seg, z_g,
-                     renders(1 if meta.full_batch else s))
+    g_renders = renders(n, dataclasses.replace(rcfg,
+                                               grad_rays=meta.grad_rays))
+    aug_d = aug_g = None
+    policy = meta.diff_augment_policy
+    if policy:
+        size = (meta.img_size, meta.img_size)
+        aug_d = make_augment_draws(generator, policy, batch, size, device)
+        aug_g = [make_augment_draws(generator, policy, batch // n, size,
+                                    device) for _ in range(n)]
+    return StepDraws(z_img, f_img, z_seg, f_seg, z_g, g_renders, aug_d,
+                     aug_g)
 
 
 # ---------------------------------------------------------------------------
@@ -311,13 +338,17 @@ def _chunk_topk_softplus(scores, frac, n_chunks: int):
 
 def _g_loss(g_params, d_img_params, d_seg_params, fcfg, rcfg,
             meta: StageMeta, z_geo, z_app, scal: StepScalars, n_chunks: int,
-            draws):
+            draws, aug_draws=None):
     out = gen.render_any(g_params, fcfg, rcfg, z_geo, z_app, scal.noise_std,
                          draws=draws)
     pixels, positions = out["pixels"], out["position"]
     fake_rgb = pixels[:, -3:]
+    d_img_in = fake_rgb
+    if meta.diff_augment_policy:
+        d_img_in = diff_augment(fake_rgb, meta.diff_augment_policy,
+                                aug_draws)
     img_s, img_geo, img_app, img_pos = disc.apply_discriminator(
-        d_img_params, meta.disc_img_config(), fake_rgb, scal.alpha)
+        d_img_params, meta.disc_img_config(), d_img_in, scal.alpha)
     # the identity term is a per-sample mean: summed over an equal-size
     # partition it is n_chunks times the full-batch mean
     g_img = (_chunk_topk_softplus(img_s[:, 0], scal.topk_frac, n_chunks)
@@ -359,9 +390,6 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
                generator: torch.Generator | None = None):
     """One step of D_img, D_seg and G. real_imgs (B, 3, H, W) and
     real_labels (B, 18, H, W) in [-1, 1]. Returns (state, metrics)."""
-    if meta.grad_rays < 1.0 or meta.diff_augment_policy:
-        raise NotImplementedError(
-            "grad_rays < 1 and diff_augment are not ported")
     fcfg = meta.field_config()
     rcfg = meta.render_config()
     dev = real_imgs.device
@@ -376,8 +404,19 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
         draws = make_step_draws(generator, meta, b, scal.noise_std, dev)
 
     g_bk = film_mlp.backend_for(fcfg, dev, train=True)
+    # grad_rays < 1: G's render differentiates a subset of its rays (the
+    # D-phase fakes have no gradients anyway)
     g_rcfg = dataclasses.replace(rcfg, backend=g_bk,
-                                 remat=rcfg.remat and g_bk == "torch")
+                                 remat=rcfg.remat and g_bk == "torch",
+                                 grad_rays=meta.grad_rays)
+    policy = meta.diff_augment_policy
+    if policy and (draws.aug_d is None or draws.aug_g is None):
+        raise ValueError(f"diff_augment_policy {policy!r} needs the "
+                         f"augmentation draws in StepDraws")
+    # the image critic's inputs only, reals and fakes with the same draws
+    # (the seg critic needs pixel-aligned masks)
+    aug = ((lambda x: diff_augment(x, policy, draws.aug_d)) if policy
+           else (lambda x: x))
     if g_bk == "torch" and rcfg.compute_dtype == "float32":
         table_dtype = None
     else:
@@ -396,8 +435,8 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
     fake_pix, fake_pos, metrics["fake_opacity"] = _render_fakes(
         render_params, fcfg, rcfg, zg, za, draws.fakes_img, scal.noise_std)
     d = _leaf_copy(state.d_img_params)
-    loss = _d_loss(d, meta.disc_img_config(), meta, real_imgs,
-                   fake_pix[:, -3:], zg, za, fake_pos, scal.alpha)
+    loss = _d_loss(d, meta.disc_img_config(), meta, aug(real_imgs),
+                   aug(fake_pix[:, -3:]), zg, za, fake_pos, scal.alpha)
     opt_img = make_d_optimizer(meta, "img").step(
         state.d_img_params, _grads(loss, d), state.opt_img)
     metrics["d_img_loss"] = loss.detach()
@@ -429,7 +468,8 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
         sl = slice(i * bs, (i + 1) * bs)
         loss, (li, ls) = _g_loss(
             rp, state.d_img_params, state.d_seg_params, fcfg, g_rcfg, meta,
-            zg[sl], za[sl], scal, s if n == 1 else 1, draws.g_renders[i])
+            zg[sl], za[sl], scal, s if n == 1 else 1, draws.g_renders[i],
+            draws.aug_g[i] if policy else None)
         grads = _grads(loss, rp)
         # f32 accumulation over microbatches (the table's cotangent too)
         g_grads = grads if g_grads is None else tree_unflatten(grads, [

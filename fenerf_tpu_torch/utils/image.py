@@ -1,11 +1,13 @@
 """Image helpers of the port's apps (its own copy of the numpy parts of
 fenerf_tpu/utils/image.py, plus what the card's machine lacks): the 19-class
-CelebAMask-HQ palette, label-map colouring, float-to-uint8, grids, the jet
-depth colouring, and a stdlib PNG writer and reader and PIL-exact resizes,
-so that no app needs PIL or cv2.
+CelebAMask-HQ palette, label-map colouring, float-to-uint8, grids and grid
+PNGs, the jet depth colouring, a zlib PNG writer and reader (its scanlines
+unfiltered by the native codec, data/native_loader.py) and PIL-exact
+resizes, so that no app needs PIL or cv2.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 import struct
@@ -128,6 +130,14 @@ def save_png(path: str, img: np.ndarray) -> None:
         f.write(encode_png(img))
 
 
+def save_image_grid(path: str, chw_batch: np.ndarray, nrow: int = 5,
+                    normalize: bool = True) -> None:
+    """(N, 3, H, W) float -> a grid PNG (the reference's save_image(...,
+    nrow=5))."""
+    imgs = to_uint8(np.asarray(chw_batch), normalize).transpose(0, 2, 3, 1)
+    save_png(path, make_grid(imgs, nrow=nrow))
+
+
 def _unfilter_slow(kind: int, line: bytearray, prior: bytes, bpp: int):
     """Average (3) and Paeth (4) scanlines, byte by byte in place (each byte
     depends on the one reconstructed bpp to its left)."""
@@ -144,11 +154,42 @@ def _unfilter_slow(kind: int, line: bytearray, prior: bytes, bpp: int):
         line[i] = (line[i] + pred) & 0xFF
 
 
+def unfilter_rows(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """(rows, 1 + stride) filtered scanlines -> (rows, stride) bytes in
+    numpy and Python: the plain version of the native unfilter
+    (data/native_loader.py::unfilter_png) that read_png uses."""
+    h, stride = raw.shape[0], raw.shape[1] - 1
+    w = stride // bpp
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, line = int(raw[y, 0]), raw[y, 1:]
+        if kind == 0:
+            cur = line.copy()
+        elif kind == 1:     # Sub: running sum per channel, mod 256
+            cur = (np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.int64)
+                   .astype(np.uint8).reshape(stride))
+        elif kind == 2:     # Up
+            cur = line + prior
+        elif kind in (3, 4):
+            buf = bytearray(line.tobytes())
+            _unfilter_slow(kind, buf, prior.tobytes(), bpp)
+            cur = np.frombuffer(bytes(buf), np.uint8)
+        else:
+            raise ValueError(f"unknown PNG filter type {kind} on row {y}")
+        out[y] = cur
+        prior = out[y]
+    return out
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode an 8-bit non-interlaced grey, RGB, RGBA or palette PNG ->
     uint8 (H, W) grey, (H, W, 3) RGB (palette images too, through their
     palette) or (H, W, 4) RGBA. Any other PNG, or another format, raises
-    ValueError."""
+    ValueError. The scanlines are unfiltered by the native codec
+    (data/native_loader.py::unfilter_png)."""
+    from fenerf_tpu_torch.data.native_loader import unfilter_png
+
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != PNG_MAGIC:
@@ -185,26 +226,7 @@ def read_png(path: str) -> np.ndarray:
     if raw.size != h * (stride + 1):
         raise ValueError(f"{path}: {raw.size} bytes of pixel data, expected "
                          f"{h * (stride + 1)}")
-    raw = raw.reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, line = int(raw[y, 0]), raw[y, 1:]
-        if kind == 0:
-            cur = line.copy()
-        elif kind == 1:     # Sub: running sum per channel, mod 256
-            cur = (np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.int64)
-                   .astype(np.uint8).reshape(stride))
-        elif kind == 2:     # Up
-            cur = line + prior
-        elif kind in (3, 4):
-            buf = bytearray(line.tobytes())
-            _unfilter_slow(kind, buf, prior.tobytes(), bpp)
-            cur = np.frombuffer(bytes(buf), np.uint8)
-        else:
-            raise ValueError(f"{path}: unknown filter type {kind}")
-        out[y] = cur
-        prior = out[y]
+    out = unfilter_png(raw.reshape(h, stride + 1), bpp)
     if color == 0:
         return out
     if color == 3:
@@ -239,6 +261,7 @@ def to_mode(img: np.ndarray, mode: str) -> np.ndarray:
 _PRECISION_BITS = 32 - 8 - 2
 
 
+@functools.lru_cache(maxsize=None)
 def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
     """PIL's NEAREST source index: floor((x + 0.5) * scale), with the
     position advanced by repeated double additions as PIL does."""
@@ -248,9 +271,11 @@ def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
     for x in range(n_out):
         idx[x] = min(int(pos), n_in - 1)
         pos += scale
+    idx.flags.writeable = False   # cached: shared by every caller
     return idx
 
 
+@functools.lru_cache(maxsize=None)
 def _bilinear_coeffs(n_in: int, n_out: int):
     """PIL's precompute_coeffs for the bilinear (triangle) filter, in its
     fixed point: -> (first source index (n_out,), int64 weights
@@ -278,6 +303,7 @@ def _bilinear_coeffs(n_in: int, n_out: int):
             kk[xx, x] = int((-0.5 if w < 0 else 0.5)
                             + w * (1 << _PRECISION_BITS))
         first[xx] = xmin
+    first.flags.writeable = kk.flags.writeable = False   # cached
     return first, kk
 
 
@@ -286,15 +312,23 @@ def _bilinear_pass(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
     weighted sum, rounded by adding half and shifting, clipped to uint8."""
     n_in = img.shape[axis]
     first, kk = _bilinear_coeffs(n_in, n_out)
-    src = np.moveaxis(img, axis, 0).astype(np.int64)
-    acc = np.full((n_out,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
-                  np.int64)
+    # int32 holds every sum: 255 * (sum of a row's weights, ~2^22) + 2^21
+    assert 255 * int(np.abs(kk).sum(axis=1).max()) + (1 << 21) < 2 ** 31
+    # the resized axis first and contiguous: each tap gathers whole rows
+    src = np.ascontiguousarray(np.moveaxis(img, axis, 0), dtype=np.int32)
+    shape = (n_out,) + (1,) * (src.ndim - 1)
+    acc = None
     for k in range(kk.shape[1]):
         idx = np.minimum(first + k, n_in - 1)
-        wk = kk[:, k].reshape((n_out,) + (1,) * (src.ndim - 1))
-        acc += src[idx] * wk
+        term = src[idx]
+        term *= kk[:, k].astype(np.int32).reshape(shape)
+        if acc is None:
+            acc = term
+        else:
+            acc += term
+    acc += 1 << (_PRECISION_BITS - 1)
     out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
+    return np.ascontiguousarray(np.moveaxis(out, 0, axis))
 
 
 def resize(img: np.ndarray, size: tuple, method: str = "bilinear"

@@ -106,6 +106,8 @@ def test_wrapper_rejects_bad_input(device):
     (FLAGSHIP, dict(grid_resolution=16), 1, 37),           # < 64 rows
     # more tiles than SMs, N % 128 != 0
     (FLAGSHIP, dict(grid_resolution=16), 2, 20000),
+    # the 64^2 stage's G microbatch: 1,179,648 rows (~29 GB of scratch)
+    (FLAGSHIP, dict(grid_resolution=16), 12, 64 * 64 * 24),
     ("SIRENBASELINESEMANTICDISENTANGLE", {}, 2, 333),
     ("SIRENBASELINESEMANTICDISENTANGLE_debug", {}, 2, 100),  # label sigmoid
     ("SPATIALSIRENBASELINESEMANTIC", {}, 1, 257),          # single latent
@@ -174,6 +176,49 @@ def test_backward_kernel_is_bitwise_deterministic(device):
         assert torch.equal(x, y)
 
 
+
+def test_grad_rays_render_on_the_kernels(device):
+    """grad_rays = 0.5 on the card: the subset renders through kernel_train
+    (forward kernel, then the backward kernel), the rest under no_grad on
+    the forward kernel alone; the pixels equal the grad_rays = 1 render's
+    on the same draws, and only the subset's rays pass gradients."""
+    import dataclasses
+
+    from fenerf_tpu_torch.compat.jax_bridge import tree_leaves
+    from fenerf_tpu_torch.models import generator as gen
+    from fenerf_tpu_torch.ops import film_mlp_grad as gops
+
+    cfg = fields.get_config(FLAGSHIP, grid_resolution=16)
+    g = torch.Generator(device=device).manual_seed(5)
+    params = fields.init_field(g, cfg, device=device)
+    rcfg = gen.RenderConfig(img_size=16, num_steps=8, backend="kernel_train",
+                            grad_rays=0.5)
+    zg = torch.randn(2, cfg.z_geo_dim, generator=g, device=device)
+    za = torch.randn(2, cfg.z_app_dim, generator=g, device=device)
+    draws = gen.draw_render(g, 2, rcfg, 0.5, rcfg.sample_dist, device)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    fwd, bwd = ops.film_mlp.launches, gops.film_mlp_bwd.launches
+    out = gen.render_from_z(params, cfg, rcfg, zg, za, 0.5, draws=draws)
+    assert ops.film_mlp.launches == fwd + 4    # 2 passes x (subset, rest)
+    mask = out["grad_ray_mask"]
+    assert int(mask.sum()) == 128
+    w = torch.randn(out["pixels"].shape, generator=g, device=device)
+    grads = torch.autograd.grad((out["pixels"] * w).sum(), leaves,
+                                allow_unused=True)
+    assert gops.film_mlp_bwd.launches == bwd + 2   # the subset's passes
+    assert any(gr is not None and gr.abs().max() > 0 for gr in grads)
+    with torch.no_grad():
+        full = gen.render_from_z(params, cfg, dataclasses.replace(
+            rcfg, grad_rays=1.0), zg, za, 0.5, draws=draws)
+    assert (out["pixels"].detach() - full["pixels"]).abs().max() <= 1e-6
+    off = torch.autograd.grad(
+        (gen.render_from_z(params, cfg, rcfg, zg, za, 0.5,
+                           draws=draws)["pixels"] * w * (~mask)).sum(),
+        leaves, allow_unused=True)
+    assert all(gr is None or gr.abs().max() == 0 for gr in off)
+
 # fused per-ray kernels (ops/csrc/ray_finalize.cu) against their plain
 # versions: the same additions in the same order, differing in exp / log and
 # the compositing sum's order (f32 over up to 2S terms)
@@ -194,7 +239,8 @@ def _ray_inputs(gen, device, b, r, s, c1=22):
 
 
 @pytest.mark.parametrize("b,r,s", [(1, 64, 12), (3, 1001, 48), (2, 37, 5),
-                                   (2, 300, 3), (1, 200, 256)])
+                                   (2, 300, 3), (1, 200, 256),
+                                   (12, 4096, 24)])   # the 64^2 stage
 @pytest.mark.parametrize("noisy", [True, False])
 @pytest.mark.parametrize("clamp", ["relu", "softplus"])
 def test_ray_resample_kernel_matches_plain(device, b, r, s, noisy, clamp):
@@ -230,7 +276,9 @@ def test_ray_resample_kernel_matches_plain(device, b, r, s, noisy, clamp):
                                           (3, 20011, 8, 8, 5),
                                           (2, 4099, 48, 48, 22),
                                           (1, 300, 128, 128, 41),
-                                          (1, 150, 96, 160, 128)])
+                                          (1, 150, 96, 160, 128),
+                                          # the 64^2 stage's G microbatch
+                                          (12, 4096, 24, 24, 22)])
 @pytest.mark.parametrize("noisy", [True, False])
 @pytest.mark.parametrize("kw", [
     dict(),

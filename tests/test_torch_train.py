@@ -77,7 +77,7 @@ class TestEmaAndCurriculum:
         assert {k: v for k, v in dataclasses.asdict(
             tm.render_config()).items() if k != "backend"} == {
             k: v for k, v in dataclasses.asdict(jm.render_config()).items()
-            if k not in ("grad_rays", "backend")}
+            if k != "backend"}
         assert tm.render_config().backend == "torch"  # the port's default
         assert dataclasses.asdict(tm.disc_seg_config()) == \
             dataclasses.asdict(jm.disc_seg_config())
