@@ -16,7 +16,8 @@ kernels (ops/csrc/film_mlp_bwd.cu) and the table-fold kernel
 (ops/csrc/zexp_fold.cu), also through the trainer's entry point
 (fenerf_tpu_torch.apps.train: a synthetic CelebAMask-HQ tree of committed
 JPEGs decoded by the port's host codec, checkpoints and resume, the FID
-protocol on stand-in InceptionV3 weights, the 64^2 stage); and both again
+protocol on stand-in InceptionV3 weights, the 64^2 stage), and the
+latent-grid family's training at its published widths; and both again
 with the switch of the fused per-ray kernels on (FENERF_RAY_KERNELS=auto: ops/csrc/ray_finalize.cu); and the
 ceiling-probe scripts (scripts/profile_torch_{mxu_chain,epilogue_overlap,
 dma_gather}.py) through their kernels (ops/csrc/mxu_chain.cu,
@@ -152,6 +153,21 @@ Phases (any failure exits non-zero):
      images/s at 32^2 and 64^2, the loader's host ms per batch, ms per
      rendered and per Inception-scored image, the Frechet distance's
      seconds, peak memory;
+ 9c. the latent-grid family's training (grid train): CelebA_latent_grid's
+     stage 0 at full width (SPATIALSIRENGRID at its published widths; bs
+     48, split 16, 64^2, 12+12 steps), 3 train_step calls on seeded
+     synthetic reals with the ray switch on and no kernel launched (the
+     JAX trainer runs this family on XLA alone); finite losses, every G
+     group and the EMA moved, ms/step, images/s, peak memory; one more
+     step under torch.profiler, its device time by group (the plane's
+     convolutions, its sampling, the per-point mapping, the FiLM layers'
+     products and epilogue / sine, the critics with R1, the rest); the
+     field's VJP on 64 rays of a G microbatch, card (cuDNN TF32 allowed
+     by the process) against the CPU, per group (phase 9's criterion) and
+     the latent plane against the CPU's; then the trainer's CLI on the
+     fixture JPEGs as a 48-image CelebA glob, 2 steps with a checkpoint,
+     RGB samples and the FID block (64 EMA renders at 128^2, stand-in
+     Inception weights), and a 1-step resume, no kernel launched;
  10. the ceiling probes: the three probe scripts at their full shapes (3 timed
      calls per variant; every probe kernel launched, no plain version
      called), then each probe kernel against its plain version at those
@@ -167,7 +183,8 @@ Phases (any failure exits non-zero):
      calls in a row, printed as context).
 
 Prints each phase's seconds, the card line, a JSON line of per-kernel
-results (launches per main path, launches_train_cli among them) and, last,
+results (launches per main path, launches_train_cli and launches_grid_train
+among them) and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -2520,6 +2537,411 @@ def phase_grid_apps(ckpt, tmp) -> dict:
             "serve_ms": dt * 1e3}
 
 
+# ---------------------------------------------------------------------------
+# the latent-grid family's training: CelebA_latent_grid stage 0 at full
+# width (SPATIALSIRENGRID at its published widths; bs 48, split 16, 64^2,
+# 12 + 12 steps). No kernel is on its path: the JAX trainer runs this
+# family on XLA alone, field and ray machinery
+# ---------------------------------------------------------------------------
+
+GRID_CURRICULUM = "CelebA_latent_grid"
+GRID_TRAIN_STEPS = 3   # the first is warm-up; ms/step is over the rest
+# the field's VJP on the card against the CPU: GRID_VJP_RAYS rays of one G
+# microbatch, per parameter group, phase 9's criterion
+GRID_VJP_RAYS = 64
+# the latent plane, card against the CPU, relative to its largest value:
+# f32 convolutions with TF32 off, another order
+GRID_PLANE_TOL = 1e-4
+# the trainer's CLI on the committed fixture JPEGs in turn as a CelebA jpg
+# glob of one batch (48): 2 steps with a checkpoint, a sample event and a
+# small FID block at step 2, then a 1-step resume
+GRID_CLI_IMAGES = 48
+GRID_CLI = ["--curriculum", GRID_CURRICULUM, "--log_every", "1"]
+GRID_CLI_FIRST = ["--total_steps", "2", "--model_save_interval", "2",
+                  "--sample_interval", "2", "--eval_freq", "2",
+                  "--num_eval_imgs", "64", "--num_real_imgs", "64"]
+GRID_CLI_RESUMED = ["--total_steps", "3", "--model_save_interval", "0",
+                    "--sample_interval", "0", "--eval_freq", "0"]
+# the profiled step's device time by the part of the model a kernel's op
+# runs for (record_function labels around the port's functions, the
+# backward attributed through its forward op)
+GRID_PARTS = (("fenerf.plane", "compute_plane", "plane convolutions"),
+              ("fenerf.sampling", "sample_local_latents", "plane sampling"),
+              ("fenerf.mapping", "point_mapping", "per-point mapping"),
+              ("fenerf.field", "apply_grid_field", None))
+
+
+@contextlib.contextmanager
+def _labelled_parts():
+    """record_function labels around the grid field's parts
+    (nn/latent_grid_field.py) and the critics (nn/discriminators.py) for
+    the block; the functions are restored after it."""
+    from fenerf_tpu_torch.nn import discriminators as disc
+    from fenerf_tpu_torch.nn import latent_grid_field as lgf
+
+    def label(fn, name):
+        def run(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    parts = [(lgf, attr, lab) for lab, attr, _ in GRID_PARTS]
+    parts.append((disc, "apply_discriminator", "fenerf.critic"))
+    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in parts]
+    try:
+        for mod, attr, lab in parts:
+            setattr(mod, attr, label(getattr(mod, attr), lab))
+        yield
+    finally:
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
+
+
+def _device_ms_by_label(prof, labels) -> dict:
+    """Device ms of a trace by (label, kernel name): a kernel takes the
+    record_function label nearest above the op that launched it; an op in
+    a backward node takes the label of the forward op that made the node
+    (the node's sequence number on its forward thread, as torch's own
+    backward stack traces link them; the R1 term's double backward is one
+    more such step). Unlabelled kernels go under None."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def backward_node(e):
+        return (e.scope == 1 or e.name.startswith(
+            "autograd::engine::evaluate_function")) and e.sequence_nr >= 0
+
+    made = {}   # (thread, number) -> the last op with it, the node's maker
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.sequence_nr >= 0 and not backward_node(e):
+            made[(e.thread, e.sequence_nr)] = e
+    memo = {}
+
+    def label(e, depth=0):
+        if id(e) not in memo:
+            out, x = None, e
+            while x is not None:
+                if x.name in labels:
+                    out = x.name
+                    break
+                if backward_node(x):
+                    maker = made.get((x.fwd_thread, x.sequence_nr))
+                    if maker is not None and depth < 8:
+                        out = label(maker, depth + 1)
+                    break
+                x = x.cpu_parent
+            memo[id(e)] = out
+        return memo[id(e)]
+
+    totals = {}
+    for e in events:
+        for k in e.kernels:
+            key = (label(e), k.name)
+            totals[key] = totals.get(key, 0.0) + k.duration / 1e3
+    return totals
+
+
+def _grid_step_groups(by_label) -> dict:
+    """The profiled step's device ms by group: the plane's convolutions,
+    its sampling, the per-point mapping, the FiLM layers' products and
+    their epilogue / sine, the critics with R1, and the rest (the ray
+    machinery, compositing, losses, optimizers, EMA)."""
+    names = {lab: name for lab, _, name in GRID_PARTS if name}
+    names["fenerf.critic"] = "critics with R1"
+    out = {}
+    for (lab, kernel), ms in by_label.items():
+        if lab == "fenerf.field":
+            group = ("FiLM products" if "gemm" in kernel.lower()
+                     else "FiLM epilogue / sine")
+        else:
+            group = names.get(lab, "rest")
+        out[group] = out.get(group, 0.0) + ms
+    return out
+
+
+def _grid_field_vjp(params, cfg, pts, dirs, z, ct):
+    """The grid field's VJP w.r.t. every parameter (the plane computed from
+    z inside it) -> ({group: flat gradient}, the plane)."""
+    from fenerf_tpu_torch.compat.jax_bridge import tree_leaves, tree_map
+    from fenerf_tpu_torch.nn import latent_grid_field as lgf
+
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    out = lgf.apply_grid_field(p, cfg, pts, dirs, z)
+    groups = sorted(p)
+    leaves = [tree_leaves(p[k]) for k in groups]
+    grads = torch.autograd.grad(out, [t for ls in leaves for t in ls], ct)
+    flat, i = {}, 0
+    for k, ls in zip(groups, leaves):
+        flat[k] = torch.cat([g.flatten() for g in grads[i:i + len(ls)]])
+        i += len(ls)
+    with torch.no_grad():
+        plane = lgf.compute_plane(p, cfg, z)
+    return flat, plane
+
+
+def _grid_vjp_check(state, meta, dev) -> dict:
+    """GRID_VJP_RAYS rays of one G microbatch (its z, points along the
+    stage's rays at the stage's depths, its ray directions): the field's
+    VJP on the card against the same on the CPU, per parameter group
+    (cosine, norms), and the latent plane against the CPU's. The card
+    runs with cuDNN's TF32 at torch's default (on): the plane's
+    convolutions must pin it off themselves, forward and backward."""
+    from fenerf_tpu_torch.compat.jax_bridge import tree_map
+    from fenerf_tpu_torch.core import rays as raylib
+
+    cfg = meta.field_config()
+    b = meta.batch_size // meta.batch_split
+    g = torch.Generator().manual_seed(13)
+    z = torch.randn(b, cfg.z_dim, generator=g)
+    rcfg = meta.render_config()
+    dirs_cam = raylib.pixel_ray_dirs(rcfg.img_size, rcfg.fov, "cpu")
+    pick = torch.randperm(dirs_cam.shape[0], generator=g)[:GRID_VJP_RAYS]
+    z0 = raylib.initial_z_vals(rcfg.num_steps, rcfg.ray_start,
+                               rcfg.ray_end, "cpu")
+    tr = raylib.transform_rays(
+        b, dirs_cam[pick], z0, rcfg.h_stddev, rcfg.v_stddev, rcfg.h_mean,
+        rcfg.v_mean, mode=rcfg.sample_dist,
+        jitter=torch.rand(b, GRID_VJP_RAYS, rcfg.num_steps, generator=g),
+        cam_h=torch.randn(b, 1, generator=g),
+        cam_v=torch.randn(b, 1, generator=g))
+    pts = (tr.ray_origins[:, :, None] + tr.ray_dirs[:, :, None]
+           * tr.z_vals[..., None]).reshape(b, -1, 3)
+    dirs = tr.ray_dirs[:, :, None].expand(
+        b, GRID_VJP_RAYS, rcfg.num_steps, 3).reshape(b, -1, 3)
+    ct = torch.randn(pts.shape[:2] + (cfg.output_dim,), generator=g)
+    cpu_params = tree_map(lambda t: t.detach().cpu(), state.g_params)
+    ref, plane_ref = _grid_field_vjp(cpu_params, cfg, pts, dirs, z, ct)
+    to = lambda t: t.to(dev)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=True):
+        got, plane = _grid_field_vjp(state.g_params, cfg, to(pts),
+                                     to(dirs), to(z), to(ct))
+    cos, norm, n = _grad_compare([got[k].cpu() for k in sorted(ref)],
+                                 [ref[k] for k in sorted(ref)])
+    plane_err = float((plane.cpu() - plane_ref).abs().max()
+                      / plane_ref.abs().max())
+    log(f"[grid train] the field's VJP on {b} x {GRID_VJP_RAYS} rays x "
+        f"{rcfg.num_steps} samples, card (cuDNN TF32 allowed by the "
+        f"process) vs CPU, {n} groups: worst cosine {cos:.6f}, worst norm "
+        f"difference {norm:.2e} (tol > {GRAD_COS}, < {GRAD_NORM}); the latent "
+        f"plane max|diff|/max|cpu| {plane_err:.2e} (tol {GRID_PLANE_TOL})")
+    if not (n == len(ref) and cos > GRAD_COS and norm < GRAD_NORM
+            and plane_err <= GRID_PLANE_TOL):
+        raise AssertionError("the grid field's VJP or plane on the card "
+                             "differs from the CPU's")
+    return {"vjp_cos": cos, "vjp_norm": norm, "plane_err": plane_err}
+
+
+def phase_grid_train(dev) -> dict:
+    """The latent-grid family's training at full width: GRID_TRAIN_STEPS
+    train_step calls of CelebA_latent_grid's stage 0 on seeded synthetic
+    reals, the ray switch on (FENERF_RAY_KERNELS=auto), and no kernel
+    launched; finite losses; every G group and the EMA moved; ms/step,
+    images/s, peak device memory; one more step under torch.profiler,
+    its device time by group; the field's VJP card vs CPU
+    (_grid_vjp_check); then the trainer's CLI (_grid_train_cli). Returns
+    the numbers it printed and the launches of each run (none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fenerf_tpu_torch.compat.jax_bridge import tree_leaves
+    from fenerf_tpu_torch.train import loop
+    from fenerf_tpu_torch.train.curriculum import CURRICULA
+
+    cur = CURRICULA[GRID_CURRICULUM]
+    meta = cur.at_step(0)
+    cfg = meta.field_config()
+    b, size = meta.batch_size, meta.img_size
+    tag = "[grid train]"
+    torch.cuda.empty_cache()
+    state = loop.init_train_state(meta, seed=0, device=dev)
+    before = {k: [t.clone() for t in tree_leaves(v)]
+              for k, v in state.g_params.items()}
+    ema0 = [t.clone() for t in tree_leaves(state.ema.params)]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    no_labels = torch.zeros(b, 0, size, size, device=dev)
+
+    def step(state, i):
+        imgs, _ = _synthetic_reals(gen, b, size, dev)
+        scal = loop.StepScalars(alpha=as_t(cur.alpha(i)),
+                                noise_std=as_t(meta.nerf_noise(i)),
+                                topk_frac=as_t(meta.topk_fraction(i)))
+        return loop.train_step(state, imgs, no_labels, scal, meta,
+                               generator=gen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with ray_kernels("auto"):
+        # --- the main path: counts from zero ---
+        zero_counts()
+        for i in range(GRID_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses = {k: float(m[k]) for k in ("d_img_loss", "g_loss",
+                                               "fake_opacity")}
+            log(f"{tag} step {i}: " + " ".join(
+                f"{k} {v:.5f}" for k, v in losses.items())
+                + f" ({times[-1] * 1e3:.1f} ms)")
+            if not all(math.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"non-finite loss at step {i}")
+        counts, plain = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(times[1:]) * 1e3
+    log(f"{tag} {GRID_CURRICULUM} stage 0, {GRID} at its published widths "
+        f"(z {cfg.z_dim}, hidden {cfg.hidden_dim}, plane {cfg.grid_ch} x "
+        f"{cfg.grid_res}^2, ch_max {cfg.ch_max}; bs {b}, split "
+        f"{meta.batch_split}, {size}^2, {meta.num_steps}+{meta.num_steps} "
+        f"steps): {ms:.1f} ms/step (host clock, synchronized; median of "
+        f"steps 2-{GRID_TRAIN_STEPS}, range {min(times[1:]) * 1e3:.1f}-"
+        f"{max(times[1:]) * 1e3:.1f}; the first {times[0] * 1e3:.1f}), "
+        f"{b / ms * 1e3:.2f} images/s; peak device memory {peak:.2f} GiB; "
+        f"launches {counts}, plain-version calls {plain}")
+    if any(counts.values()) or plain:
+        raise AssertionError("the grid trainer launched a kernel: its path "
+                             "has none (the JAX trainer's is XLA alone)")
+    for k, ts in before.items():
+        if not any(not torch.equal(x, y) for x, y in
+                   zip(ts, tree_leaves(state.g_params[k]))):
+            raise AssertionError(f"G's {k} did not move")
+    if not any(not torch.equal(x, y) for x, y in
+               zip(ema0, tree_leaves(state.ema.params))):
+        raise AssertionError("the EMA did not move")
+    log(f"{tag} every G group moved ({', '.join(sorted(before))}) and the "
+        f"EMA")
+
+    labels = {lab for lab, _, _ in GRID_PARTS} | {"fenerf.critic"}
+    with _labelled_parts(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, GRID_TRAIN_STEPS)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    groups = _grid_step_groups(_device_ms_by_label(prof, labels))
+    total = sum(groups.values())
+    log(f"{tag} one profiled step: device time {total:.1f} ms, busy share "
+        f"{total / ms:.3f} of the median step; by group: " + ", ".join(
+            f"{k} {v:.1f} ms ({v / max(total, 1e-9):.1%})" for k, v in
+            sorted(groups.items(), key=lambda kv: -kv[1]))
+        + f" (grouped in {time.perf_counter() - t0:.1f} s)")
+    results = {"ms_per_step": ms, "imgs_per_s": b / ms * 1e3,
+               "peak_gib": peak, "device_ms": total, "groups": groups,
+               "launches": {"steps": counts}}
+    del prof
+    results.update(_grid_vjp_check(state, meta, dev))
+    del state
+    torch.cuda.empty_cache()
+    results["launches"].update(_grid_train_cli(dev, cfg, results))
+    return results
+
+
+def _grid_train_cli(dev, cfg, results) -> dict:
+    """The trainer's CLI on the fixture JPEGs in turn as a CelebA glob of
+    one batch: 2 steps with a checkpoint, RGB samples and the FID block at
+    step 2, then a 1-step resume, the ray switch on. Checks no kernel
+    launched, the torch routes named, the logged steps, finite losses, the
+    sheets, the grid generator.npz and a finite FID; adds its numbers to
+    `results`. Returns the launches of each run."""
+    from fenerf_tpu_torch.apps import train as train_cli
+    from fenerf_tpu_torch.apps.common import load_generator
+    from fenerf_tpu_torch.data import synthetic
+    from fenerf_tpu_torch.eval import fid as fidlib
+    from fenerf_tpu_torch.nn import inception
+
+    tag = "[grid train]"
+    launches = {}
+    digests = synthetic.fixture_digests()
+    old_weights = os.environ.get(fidlib.WEIGHTS_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "celeba")
+        os.makedirs(images)
+        for i in range(GRID_CLI_IMAGES):
+            name = sorted(digests)[i % len(digests)]
+            os.symlink(synthetic.FIXTURES / name,
+                       os.path.join(images, f"{i:05d}.jpg"))
+        weights = os.path.join(tmp, "inception.npz")
+        inception.export_npz(inception.init_inception(
+            torch.Generator().manual_seed(0)), weights)
+        os.environ[fidlib.WEIGHTS_ENV] = weights
+        out = os.path.join(tmp, "run")
+        args = GRID_CLI + ["--device", dev.type, "--data_root",
+                           os.path.join(images, "*.jpg"), "--output_dir",
+                           out]
+        try:
+            for run, extra in (("first", GRID_CLI_FIRST),
+                               ("resumed", GRID_CLI_RESUMED
+                                + ["--load_dir", out])):
+                tee = _Tee(sys.stdout)
+                zero_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with ray_kernels("auto"), contextlib.redirect_stdout(tee):
+                    train_cli.main(args + extra)
+                seconds = time.perf_counter() - t0
+                counts, plain = read_counts()
+                launches[f"cli {run}"] = counts
+                text = "".join(tee.lines)
+                log(f"{tag} CLI {run}: {seconds:.1f} s, launches {counts}, "
+                    f"plain-version calls {plain}, peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                if any(counts.values()) or plain:
+                    raise AssertionError(f"the grid CLI ({run}) launched a "
+                                         f"kernel")
+                if "field torch, rays torch" not in text:
+                    raise AssertionError("the CLI's [stage] line does not "
+                                         "name the torch routes")
+                results[f"cli_{run}_s"] = seconds
+                if run == "first":
+                    eval_text = text
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                lines = [json.loads(x) for x in f]
+            if [x["step"] for x in lines] != [0, 1, 2] \
+                    or "at step 2" not in text:
+                raise AssertionError(f"the grid CLI logged steps "
+                                     f"{[x['step'] for x in lines]}")
+            for x in lines:
+                if not all(math.isfinite(x[k]) for k in ("d_img_loss",
+                                                         "g_loss")):
+                    raise AssertionError(f"grid CLI: non-finite loss {x}")
+                log(f"{tag} CLI step {x['step']}: d_img_loss "
+                    f"{x['d_img_loss']:.4f} g_loss {x['g_loss']:.4f}, step "
+                    f"{x['step_ms']:.1f} ms, loader {x['loader_ms']:.1f} ms "
+                    f"per batch, peak {x.get('peak_hbm_gb')} GiB")
+            sheets = sorted(n for n in os.listdir(out) if n.endswith(".png"))
+            if len(sheets) != 5 or any("_seg_" in n for n in sheets):
+                raise AssertionError(f"grid CLI sample sheets: {sheets}")
+            _, ema, _, gcfg, config = load_generator(
+                os.path.join(out, "generator.npz"), device=dev)
+            if config["family"] != "grid" or gcfg != cfg \
+                    or config["step"] != 2:
+                raise AssertionError(f"grid generator.npz: {config}")
+            with open(os.path.join(out, "fid.txt")) as f:
+                fid = float(f.read().strip().split(":")[-1])
+            if not math.isfinite(fid):
+                raise AssertionError(f"fid.txt holds {fid}")
+            m_eval = re.search(r"\[eval-t\] output_images_s=([0-9.]+) "
+                               r"images=(\d+)", eval_text)
+            render_ms = float(m_eval.group(1)) * 1e3 / int(m_eval.group(2))
+            log(f"{tag} CLI: generator.npz (family grid, step 2) loads on "
+                f"the card, {len(sheets)} RGB sample sheets, FID at step 2 "
+                f"(stand-in weights) {fid:.4f}, {render_ms:.1f} ms per "
+                f"rendered 128^2 EMA image ({m_eval.group(2)})")
+            results["cli_steps_ms"] = [x["step_ms"] for x in lines]
+            results["fid_render_ms"] = render_ms
+        finally:
+            if old_weights is None:
+                os.environ.pop(fidlib.WEIGHTS_ENV, None)
+            else:
+                os.environ[fidlib.WEIGHTS_ENV] = old_weights
+    return launches
+
+
+
+
 def _children(pid: int) -> list[int]:
     """The processes whose parent is `pid`, zombies included (/proc)."""
     out = []
@@ -2605,6 +3027,11 @@ def run_phases(dev: torch.device) -> dict:
     log(f"[train] ms/step, ray kernels off / on: "
         f"{train_off['ms_per_step']:.1f} / {train_on['ms_per_step']:.1f}")
     train_cli = timed("train cli", phase_train_cli, dev)
+    grid_train = timed("grid train", phase_grid_train, dev)
+    log(f"[grid train] {GRID_CURRICULUM} stage 0: "
+        f"{grid_train['ms_per_step']:.1f} ms/step, "
+        f"{grid_train['imgs_per_s']:.2f} images/s, peak "
+        f"{grid_train['peak_gib']:.2f} GiB")
     timed("grad", phase_grad, dev, CURRICULA[TEXTURE].at_step(0),
           (trained, TRAIN_STEPS))
     probe_launches, probe_results = timed("probe scripts",
@@ -2618,8 +3045,9 @@ def run_phases(dev: torch.device) -> dict:
         (ray kernels off and on), multiview sheets (both ray routes), the
         inversion (with its warm start and its video), video (the grid
         family on both ray routes, the film family on the kernels), the
-        grid family's multiview sheet and the trainer's CLI (stage 0, its
-        resume and the 64^2 stage)."""
+        grid family's multiview sheet, the trainer's CLI (stage 0, its
+        resume and the 64^2 stage) and the grid family's training (none:
+        the path has no kernel, as the JAX trainer's has none)."""
         by_path = {"serve": sum(r["launches"][name] for r in serve.values()),
                    "train": (train_off["launches"][name]
                              + train_on["launches"][name]),
@@ -2631,7 +3059,9 @@ def run_phases(dev: torch.device) -> dict:
                              + film_video["launches"][name]),
                    "grid_multiview": grid_apps["launches"][name],
                    "train_cli": sum(r.get(name, 0) for r in
-                                    train_cli["launches"].values())}
+                                    train_cli["launches"].values()),
+                   "grid_train": sum(r.get(name, 0) for r in
+                                     grid_train["launches"].values())}
         return {"launches": sum(by_path.values()),
                 **{f"launches_{k}": v for k, v in by_path.items()}}
 

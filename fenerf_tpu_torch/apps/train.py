@@ -18,8 +18,12 @@ loader of a stage starts at the stage's first step and skips the batches a
 resumed run has already taken, so resuming replays the straight run's
 data too.
 
-Not ported: --multihost / --coordinator / --num_processes / --process_id
-(DDP over NCCL, ROADMAP A4) raise; a latent-grid curriculum raises (A5).
+Both model families train: the latent-grid family (e.g. --curriculum
+CelebA_latent_grid, a CelebA jpg glob) renders its samples and FID images
+without psi (its FiLM is per point: there is no W-space average), writes
+RGB sheets only and a grid generator.npz, and every render takes the torch
+route. Not ported: --multihost / --coordinator / --num_processes /
+--process_id (DDP over NCCL, ROADMAP A4) raise.
 
 Usage:
   python -m fenerf_tpu_torch.apps.train \
@@ -99,7 +103,7 @@ def main(argv=None):
 
     import torch
 
-    from fenerf_tpu_torch.apps.common import save_generator
+    from fenerf_tpu_torch.apps.common import route_line, save_generator
     from fenerf_tpu_torch.data.celeba_mask import (iterate_batches,
                                                    make_dataset)
     from fenerf_tpu_torch.eval import fid as fidlib
@@ -137,7 +141,6 @@ def main(argv=None):
         return dataclasses.replace(m, **repl) if repl else m
 
     meta = meta_at(0)
-    # a latent-grid curriculum raises here (ROADMAP A5)
     state = looplib.init_train_state(meta, seed=args.seed, device=dev)
     start_step = 0
     if args.load_dir:
@@ -174,7 +177,13 @@ def main(argv=None):
 
     def eval_render(params, fcfg, ecfg, zg, za, psi, generator,
                     noise_std=0.0):
-        """EMA / eval render (psi truncation through the average W)."""
+        """EMA / eval render of either family: psi truncation through the
+        average W for the film family; the grid family renders from z
+        alone, without psi."""
+        if gen.is_grid_config(fcfg):
+            return gen.render_grid_from_z(params, fcfg, ecfg, zg,
+                                          noise_std=noise_std,
+                                          generator=generator)
         avg = fields.avg_film(params, fcfg, _seeded(dev, 0, 7))
         return gen.render_truncated(params, fcfg, ecfg, zg, za, avg,
                                     psi=psi, noise_std=noise_std,
@@ -224,12 +233,14 @@ def main(argv=None):
             # which field-kernel route serves this stage, by the policy the
             # step itself dispatches through
             fc = m.field_config()
-            kpath = (f"{film_mlp.backend_for(fc, dev, train=True)}(G)"
-                     f"+{film_mlp.backend_for(fc, dev)}(D)")
+            g_bk = film_mlp.backend_for(fc, dev, train=True)
+            kpath = f"{g_bk}(G)+{film_mlp.backend_for(fc, dev)}(D)"
+            route = route_line(fc, dataclasses.replace(
+                m.render_config(), backend=g_bk), dev)
             print(f"[stage] step={step} img={m.img_size} bs={m.batch_size} "
                   f"steps/ray={m.num_steps} split={m.batch_split}"
                   f"{'(full_batch)' if m.full_batch else ''} "
-                  f"kernel={kpath}", flush=True)
+                  f"kernel={kpath} G: {route}", flush=True)
             if m.dataset != "CelebA":
                 dataset = make_dataset(m.dataset, m.dataset_path, m.img_size,
                                        background_mask=m.background_mask)
@@ -307,10 +318,13 @@ def main(argv=None):
                 and step % args.model_save_interval == 0:
             ckpt.save(os.path.join(args.output_dir, "train_state.npz"), state)
             # m.field_overrides carries the effective overrides
-            fkw = {"z_geo_dim": m.latent_geo_dim,
-                   "z_app_dim": m.latent_app_dim,
-                   "n_labels": m.output_dim - 4,
-                   **dict(m.field_overrides)}
+            if m.family == "grid":
+                fkw = {"z_dim": m.latent_geo_dim, **dict(m.field_overrides)}
+            else:
+                fkw = {"z_geo_dim": m.latent_geo_dim,
+                       "z_app_dim": m.latent_app_dim,
+                       "n_labels": m.output_dim - 4,
+                       **dict(m.field_overrides)}
             save_generator(
                 os.path.join(args.output_dir, "generator.npz"),
                 state.g_params, state.ema.params, state.ema2.params,

@@ -139,6 +139,17 @@ def compute_plane(params: Params, cfg: GridFieldConfig,
     return stylegan.style_generator_2d(params["style_gen"], z)
 
 
+def point_mapping(params: Params, latents: torch.Tensor) -> torch.Tensor:
+    """The per-point mapping network's hidden layers (linear, LeakyReLU,
+    twice) on the local latents (B, N, C) -> (B, N, map_hidden_dim); its
+    last linear, the FiLM frequencies and phases, is formed one layer at a
+    time by apply_grid_field."""
+    x = latents
+    for lyr in params["map"][:-1]:
+        x = F.leaky_relu(x @ lyr["w"] + lyr["b"], 0.2)
+    return x
+
+
 def apply_grid_field(params: Params, cfg: GridFieldConfig,
                      points: torch.Tensor, ray_dirs: torch.Tensor,
                      z: torch.Tensor, compute_dtype=torch.float32,
@@ -152,9 +163,7 @@ def apply_grid_field(params: Params, cfg: GridFieldConfig,
     # linear gives each FiLM layer's frequencies and phases, formed one
     # layer at a time: no (B, N, 9 * 2 * h) tensor (1.8 GB at a 4096-ray
     # block of 24 samples)
-    x = latents
-    for lyr in params["map"][:-1]:
-        x = F.leaky_relu(x @ lyr["w"] + lyr["b"], 0.2)
+    x = point_mapping(params, latents)
     last = params["map"][-1]
     half = last["w"].shape[1] // 2
 

@@ -10,7 +10,7 @@ function as per-sample weights and grouped convolutions. Parameters keep
 the JAX layouts (a conv weight is HWIO (kh, kw, in, out), a linear's
 (in, out)), so a checkpoint copies across leaf for leaf. Every convolution
 runs with TF32 off (ROADMAP F4) on cuDNN's deterministic algorithms
-(ops/upfirdn2d.py::exact_convs).
+(ops/upfirdn2d.py::exact_convs), forward and backward.
 """
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ import torch.nn.functional as F
 
 from fenerf_tpu_torch.nn import init as winit
 from fenerf_tpu_torch.ops.upfirdn2d import (blur, conv2d_f32,
-                                            exact_convs, fused_leaky_relu,
-                                            upsample2d)
+                                            conv_transpose2d_f32,
+                                            fused_leaky_relu, upsample2d)
 
 Params = Any
 
@@ -86,8 +86,7 @@ def modulated_conv2d(p: Params, x: torch.Tensor, z: torch.Tensor,
         # the kernel laid out (kh, kw, out, in) is torch's transposed
         # convolution (stride 2, no padding) with the weight (in, out,
         # kh, kw)
-        with exact_convs():
-            out = F.conv_transpose2d(xm, w.permute(2, 3, 0, 1), stride=2)
+        out = conv_transpose2d_f32(xm, w.permute(2, 3, 0, 1), stride=2)
         factor, klen = 2, len(blur_kernel)
         if ksize < factor:
             # lax's VALID transpose gives in * 2 samples where torch's gives

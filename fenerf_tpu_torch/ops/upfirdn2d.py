@@ -8,8 +8,9 @@ fenerf_tpu/ops/upfirdn2d.py).
 As in the JAX package, each resample is one depthwise convolution
 (F.conv2d with groups = channels); the zero-upsampling is written out
 before it, `up - 1` zeros after every sample, the JAX package's padding
-rule. The convolution runs with TF32 off (ROADMAP F4) and cuDNN's
-deterministic algorithms (exact_convs).
+rule. The convolutions (these and nn/stylegan.py's) run with TF32 off
+(ROADMAP F4) and cuDNN's deterministic algorithms (exact_convs), in the
+forward and in the backward the trainer's G phase runs through them.
 """
 from __future__ import annotations
 
@@ -53,10 +54,51 @@ def exact_convs():
         deterministic=True, allow_tf32=False)
 
 
-def conv2d_f32(x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
-    """F.conv2d under exact_convs()."""
-    with exact_convs():
-        return F.conv2d(x, w, **kw)
+def _conv_backward(*args):
+    """aten's convolution backward (a name of its own, so that a test can
+    watch the settings it runs under)."""
+    return torch.ops.aten.convolution_backward(*args)
+
+
+class _ExactConv(torch.autograd.Function):
+    """A bias-free F.conv2d or F.conv_transpose2d under exact_convs() in
+    both directions. Autograd runs a backward after the forward's `with`
+    has closed, on the process's own cuDNN settings (TF32 on by torch's
+    default), so the backward enters exact_convs() again."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, padding: int, groups: int,
+                transposed: bool):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding, groups, transposed)
+        op = F.conv_transpose2d if transposed else F.conv2d
+        with exact_convs():
+            return op(x, w, stride=stride, padding=padding, groups=groups)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        stride, padding, groups, transposed = ctx.conv
+        with exact_convs():
+            dx, dw, _ = _conv_backward(
+                grad.contiguous(), x, w, None, [stride] * 2, [padding] * 2,
+                [1, 1], transposed, [0, 0], groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None, None, None
+
+
+def conv2d_f32(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+               padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """F.conv2d (no bias) under exact_convs(), its backward too."""
+    return _ExactConv.apply(x, w, stride, padding, groups, False)
+
+
+def conv_transpose2d_f32(x: torch.Tensor, w: torch.Tensor,
+                         stride: int = 1) -> torch.Tensor:
+    """F.conv_transpose2d (no bias, no padding) under exact_convs(), its
+    backward too."""
+    return _ExactConv.apply(x, w, stride, 0, 1, True)
 
 
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
@@ -74,7 +116,7 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
     x = F.pad(x, (p0, p1, p0, p1))
     # correlation with the flipped kernel is the true convolution
     k = torch.flip(kernel, (0, 1)).to(x.dtype)
-    k = k[None, None].expand(c, 1, *k.shape)
+    k = k[None, None].expand(c, 1, *k.shape).contiguous()
     return conv2d_f32(x, k, stride=down, groups=c)
 
 

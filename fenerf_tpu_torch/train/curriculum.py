@@ -16,10 +16,9 @@ from typing import Any
 from fenerf_tpu_torch.models.generator import RenderConfig
 from fenerf_tpu_torch.nn.discriminators import DiscriminatorConfig
 from fenerf_tpu_torch.nn.fields import FieldConfig, get_config
-
-# models of the latent-grid family (not ported; listed so that the
-# registry's grid curricula keep their family)
-GRID_MODELS = frozenset({"SPATIALSIRENGRID"})
+from fenerf_tpu_torch.nn.latent_grid_field import (GridFieldConfig,
+                                                   get_grid_config,
+                                                   is_grid_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,20 +93,20 @@ class StageMeta:
     # ---- derived configs --------------------------------------------------
     @property
     def family(self) -> str:
-        return "grid" if self.model in GRID_MODELS else "film"
+        return "grid" if is_grid_model(self.model) else "film"
 
-    def field_config(self) -> FieldConfig:
-        """The film family's FieldConfig; the latent-grid family is not
-        ported and raises."""
+    def field_config(self) -> FieldConfig | GridFieldConfig:
+        """FieldConfig (film family) or GridFieldConfig (latent-grid
+        family, one latent of latent_geo_dim)."""
         if self.family == "grid":
-            raise NotImplementedError(
-                f"{self.model}: the latent-grid family is not ported")
-        cfg = get_config(
-            self.model,
-            z_geo_dim=self.latent_geo_dim,
-            z_app_dim=self.latent_app_dim,
-            n_labels=self.output_dim - 4,
-        )
+            cfg = get_grid_config(self.model, z_dim=self.latent_geo_dim)
+        else:
+            cfg = get_config(
+                self.model,
+                z_geo_dim=self.latent_geo_dim,
+                z_app_dim=self.latent_app_dim,
+                n_labels=self.output_dim - 4,
+            )
         if self.field_overrides:
             cfg = dataclasses.replace(cfg, **dict(self.field_overrides))
         return cfg

@@ -1,5 +1,5 @@
 """The GAN training step: D_img -> D_seg -> G, with R1, topk and two EMAs
-(port of fenerf_tpu/train/loop.py for the film family).
+(port of fenerf_tpu/train/loop.py, both model families).
 
 One call is one optimizer step of each of the three networks:
 
@@ -14,6 +14,10 @@ One call is one optimizer step of each of the three networks:
     ceil(frac * chunk) best fakes of each chunk; then one Adam step and
     both EMA updates. On the card G's renders run through the fused
     forward and backward kernels (backend 'kernel_train').
+  * The latent-grid family (GridFieldConfig) is RGB-only, so it has no
+    D_seg phase; its field has no kernel, so every render of its step
+    takes the torch route (film_mlp.backend_for), as the JAX trainer's
+    take XLA's, the ray machinery included.
   * With a DiffAugment policy (meta.diff_augment_policy) D_img's reals
     and fakes take one augmentation and each G microbatch's fakes one of
     their own before the image critic, never the seg critic's inputs;
@@ -195,11 +199,12 @@ def _device(device) -> torch.device:
 
 def init_train_state(meta: StageMeta, seed: int = 0,
                      device="cuda") -> TrainState:
-    """Random G, D_img and D_seg from `seed`, fresh optimizers and EMAs."""
+    """Random G (either family), D_img and D_seg from `seed`, fresh
+    optimizers and EMAs."""
     dev = _device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     return train_state_from_params(
-        meta, fields.init_field(g, meta.field_config(), device=dev),
+        meta, gen.init_any_field(g, meta.field_config(), device=dev),
         disc.init_discriminator(g, meta.disc_img_config(), device=dev),
         disc.init_discriminator(g, meta.disc_seg_config(), device=dev))
 
@@ -389,7 +394,8 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
                meta: StageMeta, draws: StepDraws | None = None,
                generator: torch.Generator | None = None):
     """One step of D_img, D_seg and G. real_imgs (B, 3, H, W) and
-    real_labels (B, 18, H, W) in [-1, 1]. Returns (state, metrics)."""
+    real_labels (B, 18, H, W) in [-1, 1] (not read when the model is
+    RGB-only). Returns (state, metrics)."""
     fcfg = meta.field_config()
     rcfg = meta.render_config()
     dev = real_imgs.device
@@ -421,7 +427,9 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
         table_dtype = None
     else:
         table_dtype = torch.bfloat16
-    use_table = bool(fcfg.grid_channels)
+    # the film family's texture table (the grid family has none)
+    use_table = isinstance(fcfg, fields.FieldConfig) and bool(
+        fcfg.grid_channels)
     with torch.no_grad():
         render_params = state.g_params
         if use_table:

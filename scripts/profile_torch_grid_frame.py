@@ -66,7 +66,6 @@ def main(argv=None) -> int:
     from fenerf_tpu_torch.apps.common import (best_backend,
                                               camera_trajectory, route_line)
     from fenerf_tpu_torch.nn import latent_grid_field as lgf
-    from fenerf_tpu_torch.nn import stylegan
     from fenerf_tpu_torch.ops import upfirdn2d
     from fenerf_tpu_torch.ops.probes import card, require_cuda
 
@@ -94,12 +93,12 @@ def main(argv=None) -> int:
         defaults = lambda: torch.backends.cudnn.flags(
             enabled=True, benchmark=False, deterministic=False,
             allow_tf32=False)
-        kept = stylegan.exact_convs, upfirdn2d.exact_convs
-        stylegan.exact_convs = upfirdn2d.exact_convs = defaults
+        kept = upfirdn2d.exact_convs
+        upfirdn2d.exact_convs = defaults
         try:
             default = plane_spread(plane)
         finally:
-            stylegan.exact_convs, upfirdn2d.exact_convs = kept
+            upfirdn2d.exact_convs = kept
         print(f"[grid frame] latent plane over 8 calls, max |diff| from "
               f"the first: deterministic algorithms {exact:.3e}, cuDNN's "
               f"default choice {default:.3e}")

@@ -85,9 +85,26 @@ class TestEmaAndCurriculum:
             assert tm.nerf_noise(step) == jm.nerf_noise(step)
             assert tm.topk_fraction(step) == jm.topk_fraction(step)
 
-    def test_grid_family_raises(self):
-        with pytest.raises(NotImplementedError):
-            tcur.CURRICULA["CelebA_latent_grid"].at_step(0).field_config()
+    @pytest.mark.parametrize("name", ["CelebA_latent_grid", "smoke_grid"])
+    def test_grid_field_config_matches_jax(self, name):
+        """The latent-grid family's GridFieldConfig field by field (z from
+        latent_geo_dim, the curriculum's field_overrides), and the configs
+        its step derives: RGB-only, a single-encoder image critic."""
+        jm = jcur.CURRICULA[name].at_step(0)
+        tm = tcur.CURRICULA[name].at_step(0)
+        assert tm.family == jm.family == "grid"
+        tc, jc = tm.field_config(), jm.field_config()
+        assert type(tc).__name__ == type(jc).__name__ == "GridFieldConfig"
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+        assert tc.z_dim == tm.latent_geo_dim and tc.output_dim == 4
+        assert dataclasses.asdict(tm.disc_img_config()) == \
+            dataclasses.asdict(jm.disc_img_config())
+        assert tm.disc_img_config().latent_app_dim == 0
+        assert {k: v for k, v in dataclasses.asdict(
+            tm.render_config()).items() if k != "backend"} == {
+            k: v for k, v in dataclasses.asdict(jm.render_config()).items()
+            if k != "backend"}
+        assert not tm.render_config().remat
 
 
 class TestOptimizer:

@@ -3,9 +3,9 @@
 leaf for leaf; `python -m fenerf_tpu_torch.apps.train` at tiny widths on a
 synthetic CelebAMask-HQ tree (metrics, generator checkpoint that renders,
 sample grids, FID on stand-in InceptionV3 weights); a resumed run equal to
-the straight run leaf for leaf; the refusals (multi-process, the grid
-family, CUDA absent); and chip_smoke.py's stop of the processes the
-loader leaves.
+the straight run leaf for leaf; the latent-grid family's smoke_grid on the
+committed JPEGs; the refusals (multi-process, CUDA absent); and
+chip_smoke.py's stop of the processes the loader leaves.
 """
 import importlib.util
 import json
@@ -28,6 +28,7 @@ from fenerf_tpu_torch.apps import train as tcli
 from fenerf_tpu_torch.apps.common import load_generator
 from fenerf_tpu_torch.compat.jax_bridge import tree_leaves
 from fenerf_tpu_torch.data import celeba_mask as tdata
+from fenerf_tpu_torch.data import synthetic
 from fenerf_tpu_torch.data.synthetic import write_celebamask_tree
 from fenerf_tpu_torch.models import generator as tgen
 from fenerf_tpu_torch.nn import inception
@@ -43,21 +44,28 @@ torch.set_num_threads(2)
 TEXTURE = "CelebA_double_semantic_texture_embedding_256_dim_96"
 
 
-def _perturbed_jax_state(meta):
-    """A JAX TrainState whose every leaf differs from its init (moments,
-    counts, EMA counters, step)."""
-    st = jloop.init_train_state(jax.random.key(0), meta)
-    leaves, treedef = jax.tree_util.tree_flatten(st)
+def perturbed(state):
+    """A JAX TrainState whose every leaf differs from `state`'s (moments,
+    counts, EMA counters, step): floats by a normal draw, integers by 3;
+    Adam's second moments kept >= 0, so that the state can step."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(state)
     rng = np.random.default_rng(0)
     out = []
-    for x in leaves:
+    for path, x in leaves:
         x = np.asarray(x)
         if np.issubdtype(x.dtype, np.floating):
-            out.append(jnp.asarray(x + rng.normal(size=x.shape).astype(
-                x.dtype)))
+            x = x + rng.standard_normal(x.shape, dtype=np.float32)
+            if any(getattr(k, "name", None) == "nu" for k in path):
+                x = np.abs(x)
         else:
-            out.append(jnp.asarray(x + 3))
+            x = x + 3
+        out.append(jnp.asarray(x))
     return jax.tree_util.tree_unflatten(treedef, out)
+
+
+def _perturbed_jax_state(meta):
+    """The JAX package's initial TrainState, perturbed."""
+    return perturbed(jloop.init_train_state(jax.random.key(0), meta))
 
 
 @pytest.mark.parametrize("unique_lr", [True, False])
@@ -229,10 +237,72 @@ def test_cli_resume_equals_straight_run(data_root, tmp_path, capsys,
                 np.testing.assert_array_equal(b[k], c[k], err_msg=k)
 
 
+def test_cli_smoke_grid(tmp_path, capsys, deterministic):
+    """The latent-grid family through the CLI on the committed JPEGs (a
+    CelebA jpg glob): finite losses, RGB sample sheets only, a grid
+    generator.npz that both packages open and render alike, and a resume
+    from train_state.npz equal to the straight run leaf for leaf."""
+    from fenerf_tpu.apps.common import load_generator as jload_generator
+    from fenerf_tpu.models import generator as jgen
+
+    base = ["--curriculum", "smoke_grid", "--device", "cpu",
+            "--data_root", str(synthetic.FIXTURES / "*.jpg"),
+            "--log_every", "1", "--eval_freq", "0",
+            "--stage_overrides", '{"target_size": 16}']
+    a, b, c = (tmp_path / d for d in "abc")
+    tcli.main(base + ["--output_dir", str(a), "--total_steps", "2",
+                      "--model_save_interval", "2", "--sample_interval",
+                      "2"])
+    assert "field torch, rays torch" in capsys.readouterr().out
+    lines = [json.loads(x) for x in
+             (a / "metrics.jsonl").read_text().splitlines()]
+    assert [x["step"] for x in lines] == [0, 1]
+    for x in lines:
+        for k in ("d_img_loss", "g_loss", "imgs_per_sec", "step_ms"):
+            assert math.isfinite(x[k]), k
+        assert x["d_seg_loss"] == 0.0
+    for tag in ("fixed", "tilted", "fixed_ema", "tilted_ema", "random_ema"):
+        img = read_png(str(a / f"2_img_{tag}.png"))
+        assert img.shape == (2 + 5 * 18, 2 + 5 * 18, 3)
+    assert not list(a.glob("*_seg_*"))
+
+    path = str(a / "generator.npz")
+    _, ema, _, cfg, config = load_generator(path, device="cpu")
+    _, jema, _, jcfg, jconfig = jload_generator(path)
+    assert config["family"] == jconfig["family"] == "grid"
+    assert config["step"] == 2 and cfg == tgen.get_any_config(
+        "SPATIALSIRENGRID", **jconfig["field_kwargs"])
+    assert cfg.z_dim == 16 and cfg.hidden_dim == jcfg.hidden_dim == 32
+    # a render without draws: no jitter, one pass, the mean camera
+    rcfg = tgen.RenderConfig(img_size=8, num_steps=4, perturb=False,
+                             hierarchical=False, sample_dist=None)
+    z = np.random.default_rng(0).standard_normal((1, 16)).astype(np.float32)
+    pix = tgen.render_any(ema, cfg, rcfg, torch.from_numpy(z),
+                          torch.from_numpy(z))["pixels"]
+    ref = jgen.render_grid_from_z(jema, jcfg, jgen.RenderConfig(
+        img_size=8, num_steps=4, perturb=False, hierarchical=False,
+        sample_dist=None), jax.random.key(0), jnp.asarray(z))["pixels"]
+    assert pix.shape == (1, 3, 8, 8)
+    np.testing.assert_allclose(pix.numpy(), np.asarray(ref), atol=1e-4)
+
+    tcli.main(base + ["--output_dir", str(b), "--total_steps", "3",
+                      "--load_dir", str(a), "--model_save_interval", "0",
+                      "--sample_interval", "0"])
+    assert "at step 2" in capsys.readouterr().out
+    tcli.main(base + ["--output_dir", str(c), "--total_steps", "3",
+                      "--model_save_interval", "0", "--sample_interval",
+                      "0"])
+    with np.load(b / "train_state.npz") as x, \
+            np.load(c / "train_state.npz") as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            if k != "__manifest__":
+                np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+
+
 @pytest.mark.parametrize("extra,exc,match", [
     (["--multihost"], NotImplementedError, "ROADMAP A4"),
     (["--num_processes", "2"], NotImplementedError, "ROADMAP A4"),
-    (["--curriculum", "smoke_grid"], NotImplementedError, "latent-grid"),
 ])
 def test_cli_refusals(data_root, tmp_path, extra, exc, match):
     with pytest.raises(exc, match=match):

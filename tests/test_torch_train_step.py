@@ -86,8 +86,12 @@ def jax_step_draws(key, meta, b, noise_std):
                 for kk in jax.random.split(k, s)]
 
     s = 1 if meta.full_batch else meta.batch_split
+    # the G phase's scan splits its key even at batch_split 1 (loop.py:473)
+    g = (renders(k_fg, 1) if meta.full_batch else
+         [_jax_draws(kk, b // s, rcfg, noise_std)
+          for kk in jax.random.split(k_fg, s)])
     return tloop.StepDraws(z(k_zi), renders(k_fi, s), z(k_zs),
-                           renders(k_fs, s), z(k_zg), renders(k_fg, s))
+                           renders(k_fs, s), z(k_zg), g)
 
 
 def _jax_moments(opt_state, unique):
