@@ -7,7 +7,9 @@ TextureEmbeddingPiGAN256SEMANTICDISENTANGLE_DIM_96 with random weights from
 a seed: serving (fenerf_tpu_torch.apps.serve) through the hand-written CUDA
 field kernel (ops/csrc/film_mlp.cu); the editing workflow's entry points
 (apps.render_multiview, apps.extract_shapes, apps.invert) through it and
-the backward kernels; free-viewpoint video (apps.render_video) of the film
+the backward kernels, and its mask half (apps.prepare_segmaps on BiSeNet,
+apps.edit_mask, apps.paint_ui, apps.edit_log_video, apps.eval_metrics and
+render_multiview --hd with the neural renderers) around an inversion; free-viewpoint video (apps.render_video) of the film
 family through it and of the latent-grid family SPATIALSIRENGRID, at its
 published widths, through the ray kernels, and the grid family's
 multiview, shape and serving paths; and GAN training
@@ -113,6 +115,26 @@ Phases (any failure exits non-zero):
      f. the grid checkpoint's other paths: a render_multiview sheet at its
         defaults (ray kernels on), extract_shapes at 256^3 with a mesh (as
         b.), and a request through serve (the torch route, no kernel);
+     g. the edit loop, the editing workflow's mask half through the CLIs'
+        mains with the ray kernels on and seeded stand-in weights: parse (a
+        512^2 face of the serving checkpoint and a committed 1024^2 JPEG
+        through prepare_segmaps --size 512 --colorize on a segNet-20Class-
+        layout state_dict; BiSeNet's logits card vs CPU, 1e-4 of each
+        image's largest, the maps equal where the margin exceeds it; ms per
+        parse and per image); edit (edit_mask's switch, scale up and down,
+        rect, transfer, simplify held to mask_tools; paint_ui in its own
+        process on a free port, /, /labels, /op, /log, /save, the saved map
+        equal to apply_op's, the edit log); invert (the JPEG photo against
+        the edited map, 30 iterations, an eval every 15, kernel_train:
+        finite losses that fall, launches equal to the iterations, eval
+        renders and one video frame); replay (edit_log_video --side the
+        inversion's render, the .avi equal to log_to_frames); score
+        (eval_metrics fid / kid / isc between two directories of 16 renders
+        on stand-in Inception weights; a directory against itself below
+        1e-3 / 1e-4); HD (render_multiview --hd on a SPATIALSIRENSEMANTICHD
+        checkpoint with stand-in nr_img / nr_seg heads, 64^2 features to
+        256^2: the view's features on the field kernel vs the torch route
+        at bf16, 2e-2; the heads card vs CPU at f32, 1e-4; ms per sheet);
   6. one whole render through the field kernel against the same render
      through its plain version; the ray kernels' render against the torch
      route's; ray-chunked against whole-image rendering on both routes;
@@ -183,8 +205,8 @@ Phases (any failure exits non-zero):
      calls in a row, printed as context).
 
 Prints each phase's seconds, the card line, a JSON line of per-kernel
-results (launches per main path, launches_train_cli and launches_grid_train
-among them) and, last,
+results (launches per main path, launches_train_cli, launches_grid_train
+and launches_edit among them) and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -195,6 +217,7 @@ import importlib.util
 import json
 import math
 import os
+import queue
 import re
 import signal
 import statistics
@@ -2538,6 +2561,551 @@ def phase_grid_apps(ckpt, tmp) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 5g. the edit loop: the editing workflow's mask half through the CLIs'
+# mains on the card (parse -> edit / paint -> invert -> replay -> score ->
+# HD), every weights file a seeded stand-in written into the temp directory
+# ---------------------------------------------------------------------------
+
+EDIT_PARSE_SIZE = 512   # prepare_segmaps --size
+# BiSeNet's logits, card against the CPU, relative to each image's largest:
+# f32 convolutions with TF32 off on both sides, in another order; the label
+# maps are held wherever the top-two margin exceeds it
+BISENET_TOL = 1e-4
+# invert against the JPEG photo and the edited map: the kernel_train route,
+# the ray kernels on, 30 iterations, an eval render every 15
+EDIT_INVERT = ["--image_size", "128", "--num_steps", "24", "--iterations",
+               "30", "--eval_every", "15", "--lambda_seg", "1",
+               "--lambda_img", "1", "--lambda_norm", "0"]
+EDIT_ITERATIONS = 30
+EDIT_SCORE_IMAGES = 16   # renders per directory for eval_metrics
+# a directory scored against itself: FID up to sqrtm's rounding; KID's
+# unbiased estimate is ~0, not 0 (its cross term keeps the diagonal the
+# within-set terms drop)
+EDIT_FID_SELF = 1e-3
+EDIT_KID_SELF = 1e-4
+HD = "SPATIALSIRENSEMANTICHD"
+HD_SIZE = 256            # render_multiview --hd --image_size
+HD_FEATURES = 64         # the heads upsample 64^2 features 4x
+# the neural renderers on the card against the CPU at f32, relative to the
+# output's largest value: TF32 off on both sides, another order
+NR_TOL = 1e-4
+
+
+def _edit_counts(launches, want, tag):
+    """Fails unless the launches equal `want` (every other kernel 0) and no
+    plain version ran."""
+    counts, plain = launches
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full or plain:
+        raise AssertionError(f"[edit] {tag}: launches {counts}, plain calls "
+                             f"{plain}; want {full}")
+    return counts
+
+
+def _render_face(ckpt, dev, path):
+    """The serving checkpoint's EMA at EDIT_PARSE_SIZE^2 (24 + 24 steps,
+    psi 0.7, ray_chunk 4096, the field kernel), saved as a PNG."""
+    from fenerf_tpu_torch.models import generator as gen
+    from fenerf_tpu_torch.nn import fields
+    from fenerf_tpu_torch.ops import film_mlp
+    from fenerf_tpu_torch.utils.image import save_png, to_uint8
+
+    params, cfg, fg, fa = _app_films(ckpt, 7, dev, 0.7)
+    rcfg = gen.RenderConfig(img_size=EDIT_PARSE_SIZE, num_steps=48,
+                            fill_mode="seg_padding_background",
+                            ray_chunk=4096, compute_dtype="bfloat16",
+                            backend="kernel")
+    params = film_mlp.with_pack(
+        fields.with_grid_table(params, cfg, torch.bfloat16), cfg)
+    with torch.no_grad():
+        pix = gen.render(params, cfg, rcfg, fg, fa, 1,
+                         camera=(math.pi / 2, math.pi / 2, 12.0),
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    pix = pix["pixels"][0].float().cpu().numpy()
+    save_png(path, to_uint8(pix[-3:], normalize=False).transpose(1, 2, 0))
+
+
+def _read_maps(masks, files):
+    from fenerf_tpu_torch.utils.image import read_png
+
+    return np.stack([read_png(os.path.join(
+        masks, os.path.splitext(os.path.basename(f))[0] + ".png"))
+        for f in files])
+
+
+def _edit_parse(ckpt, tmp, dev) -> dict:
+    """Parse: a 512^2 face rendered by the serving checkpoint and a
+    committed 1024^2 fixture JPEG through prepare_segmaps --size 512
+    --colorize (one image per BiSeNet call, the default) on a seeded
+    segNet-20Class-layout state_dict; BiSeNet's logits on the card against
+    the CPU's on the same inputs, the written maps against the CPU's argmax
+    where the margin allows. Then the CLI again, warm (its maps held to the
+    first run's), and BiSeNet warm at batch 1, 2 and 8: what a batched
+    parse would save per image."""
+    from fenerf_tpu_torch.apps import prepare_segmaps
+    from fenerf_tpu_torch.data import synthetic
+    from fenerf_tpu_torch.data.native_loader import read_image
+    from fenerf_tpu_torch.nn import bisenet
+    from fenerf_tpu_torch.utils.image import read_png, resize
+
+    photos = os.path.join(tmp, "edit_photos")
+    os.makedirs(photos)
+    face = os.path.join(photos, "render.png")
+    zero_counts()
+    _render_face(ckpt, dev, face)
+    blocks = EDIT_PARSE_SIZE ** 2 // 4096
+    render_n = _edit_counts(read_counts(), {
+        "film_mlp": 2 * blocks, "ray_resample": blocks,
+        "ray_finalize": blocks}, "the 512^2 face render")
+    jpg = os.path.join(photos, "photo.jpg")
+    os.symlink(synthetic.FIXTURES / sorted(synthetic.fixture_digests())[0],
+               jpg)
+    weights = os.path.join(tmp, "segNet-20Class.pth")
+    sd = bisenet.stand_in_state_dict(0)
+    torch.save(sd, weights)
+    masks = os.path.join(tmp, "edit_masks")
+    zero_counts()
+    cli = ["--images", os.path.join(photos, "*"), "--weights", weights,
+           "--size", str(EDIT_PARSE_SIZE), "--colorize"]
+    res = prepare_segmaps.main(cli + ["--output_dir", masks])
+    _edit_counts(read_counts(), {}, "prepare_segmaps")
+    n = len(res["files"])
+    ms_model = statistics.fmean(res["model_ms"])
+    # BiSeNet on the card against the CPU, on the CLI's own inputs
+    x = np.stack([resize(read_image(f, "RGB"), (EDIT_PARSE_SIZE,) * 2,
+                         "bilinear") for f in res["files"]])
+    x = torch.from_numpy(np.ascontiguousarray(
+        ((x.astype(np.float32) / 255.0).transpose(0, 3, 1, 2) - 0.5) / 0.5))
+    card_params = bisenet.bisenet_from_torch(sd, dev)
+    xd = x.to(dev)
+    x8 = xd.repeat(4, 1, 1, 1)
+    with torch.no_grad():
+        ref = bisenet.bisenet_apply(bisenet.bisenet_from_torch(sd), x)
+        got = bisenet.bisenet_apply(card_params, xd).cpu()
+        # warm, ms per image by batch (the CLI's first call pays cuDNN's
+        # first use of every shape): each image alone, both, both x4
+        warm = {1: statistics.fmean(time_ms(
+            lambda i=i: bisenet.bisenet_apply(card_params, xd[i:i + 1]),
+            iters=5) for i in range(n))}
+        warm[n] = time_ms(lambda: bisenet.bisenet_apply(card_params, xd),
+                          iters=5) / n
+        warm[4 * n] = time_ms(lambda: bisenet.bisenet_apply(card_params, x8),
+                              iters=5) / (4 * n)
+    scale = ref.abs().amax(dim=(1, 2, 3), keepdim=True)
+    err = float(((got - ref).abs() / scale).max())
+    top = ref.topk(2, dim=1).values
+    sure = ((top[:, 0] - top[:, 1]) > BISENET_TOL * scale[:, 0]).numpy()
+    want = bisenet.remap_labels(ref.argmax(1).to(torch.uint8).numpy())
+    maps = _read_maps(masks, res["files"])
+    wrong = int((maps != want)[sure].sum())
+    log(f"[edit] parse: {n} images at {EDIT_PARSE_SIZE}^2 in "
+        f"{res['seconds']:.2f} s ({res['seconds'] / n * 1e3:.1f} ms per image "
+        f"end to end: decode, resize, load, parse, PNGs), BiSeNet "
+        f"{ms_model:.2f} ms per {EDIT_PARSE_SIZE}^2 image in the CLI's calls "
+        f"(model only, synchronized, batch 1, cold); logits card vs CPU "
+        f"max|diff|/max {err:.2e} (tol {BISENET_TOL}); label maps differ at "
+        f"{wrong} of {int(sure.sum())} pixels whose margin exceeds it "
+        f"({sure.mean():.4f} of all); classes {np.unique(maps).tolist()}")
+    if not (err <= BISENET_TOL and wrong == 0 and sure.mean() > 0.99):
+        raise AssertionError("BiSeNet on the card differs from the CPU")
+    out = os.path.join(tmp, "edit_masks_warm")
+    again = prepare_segmaps.main(cli + ["--output_dir", out])
+    if (_read_maps(out, again["files"]) != maps)[sure].any():
+        raise AssertionError("prepare_segmaps wrote other maps warm")
+    log(f"[edit] parse warm: prepare_segmaps {again['seconds'] / n:.4f} s "
+        f"per image end to end, BiSeNet "
+        f"{statistics.fmean(again['model_ms']):.3f} ms of it (the same "
+        f"maps); BiSeNet warm ms per {EDIT_PARSE_SIZE}^2 image (CUDA "
+        f"events, mean of 5 calls) at batch 1 / {n} / {4 * n}: "
+        f"{warm[1]:.3f} / {warm[n]:.3f} / {warm[4 * n]:.3f}")
+    for f in res["files"]:
+        stem = os.path.splitext(os.path.basename(f))[0]
+        if read_png(os.path.join(masks, f"{stem}_color.png")).shape != (
+                EDIT_PARSE_SIZE, EDIT_PARSE_SIZE, 3):
+            raise AssertionError(f"bad colorized preview of {stem}")
+    return {"photo": jpg, "maps": dict(zip(
+        [os.path.splitext(os.path.basename(f))[0] for f in res["files"]],
+        maps)), "masks": masks, "ms_bisenet": ms_model,
+        "ms_bisenet_warm": warm, "s_per_image": res["seconds"] / n,
+        "s_per_image_warm": again["seconds"] / n, "logit_err": err,
+        "launches": render_n}
+
+
+def _edit_masks(parsed, tmp) -> tuple[str, str]:
+    """Edit: edit_mask on the photo's map (switch, scale up and down, rect,
+    transfer from the render's map, simplify), held to the same ops through
+    utils/mask_tools.py; then paint_ui as a user runs it (its own process,
+    a free port, --edit_log) over HTTP: /, /labels, /op, /log, /save, the
+    saved map equal to apply_op's. -> (the painted map, the edit log)."""
+    import subprocess
+    import urllib.request
+
+    from fenerf_tpu_torch.apps import edit_mask, paint_ui
+    from fenerf_tpu_torch.utils import mask_tools as mt
+    from fenerf_tpu_torch.utils.image import read_png
+
+    photo_map = parsed["maps"]["photo"]
+    src = os.path.join(parsed["masks"], "photo.png")
+    ref = os.path.join(parsed["masks"], "render.png")
+    counts = np.bincount(photo_map.ravel(), minlength=19)
+    a, b = (int(c) for c in np.argsort(counts)[::-1][:2])
+    edited = os.path.join(tmp, "edited.png")
+    t0 = time.perf_counter()
+    out = edit_mask.main([
+        src, edited, "--op", f"switch:{a}:{b}", "--op", f"scale:{a}:1.3",
+        "--op", f"scale:{b}:0.7", "--op", "rect:mouth:200:300:312:340",
+        "--op", f"transfer:{a}:{ref}:4:-4", "--op", "simplify",
+        "--colorize"])
+    edit_s = time.perf_counter() - t0
+    want = mt.switch_semantic(photo_map, a, b)
+    want = mt.scale_semantic(mt.scale_semantic(want, a, 1.3), b, 0.7)
+    region = np.zeros(want.shape, bool)
+    region[300:340, 200:312] = True
+    want = mt.add_semantic(want, mt.LABELS["mouth"], region)
+    want = mt.simplify_mask(mt.transfer_semantic(
+        want, parsed["maps"]["render"], (a,), (4, -4)))
+    if not (np.array_equal(read_png(edited), want)
+            and np.array_equal(out, want)):
+        raise AssertionError("edit_mask's map differs from mask_tools'")
+    changed = float((want != photo_map).mean())
+    log(f"[edit] edit_mask: switch {a}<->{b}, scale {a} x1.3, {b} x0.7, "
+        f"rect, transfer, simplify in {edit_s:.2f} s; {changed:.3f} of the "
+        f"pixels changed, equal to mask_tools'")
+    if not 0 < changed < 1:
+        raise AssertionError("edit_mask changed nothing or everything")
+
+    painted = os.path.join(tmp, "painted.png")
+    log_path = os.path.join(tmp, "sess.editlog.npz")
+    root = Path(__file__).resolve().parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fenerf_tpu_torch.apps.paint_ui", "--mask",
+         edited, "--out", painted, "--port", "0", "--edit_log", log_path],
+        cwd=root, stdout=subprocess.PIPE, text=True)
+    # the server's output, read by a thread (None at its end), so that the
+    # wait for its address has a deadline
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: (
+        [lines.put(line) for line in proc.stdout], lines.put(None)),
+        daemon=True)
+    reader.start()
+    try:
+        port, deadline = None, time.monotonic() + 60
+        while port is None:
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(), 0))
+            except queue.Empty:
+                raise AssertionError("paint_ui printed no address in 60 s")
+            if line is None:
+                raise AssertionError("paint_ui ended without an address")
+            m = re.search(r"http://localhost:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+        base = f"http://127.0.0.1:{port}"
+
+        def post(path, payload):
+            req = urllib.request.Request(
+                base + path, data=json.dumps(payload).encode(),
+                method="POST")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.read()
+
+        t0 = time.perf_counter()
+        page = _get(base + "/").decode()
+        labels = json.loads(_get(base + "/labels"))
+        mask = np.asarray(labels["labels"], np.uint8).reshape(
+            labels["h"], labels["w"])
+        spec = f"scale:{a},1.2"
+        d = json.loads(post("/op", {"op": spec,
+                                    "labels": mask.ravel().tolist()}))
+        opped = np.asarray(d["labels"], np.uint8).reshape(mask.shape)
+        post("/log", {"labels": opped.ravel().tolist()})
+        msg = post("/save", {"labels": opped.ravel().tolist()}).decode()
+        http_s = time.perf_counter() - t0
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        reader.join(timeout=30)
+        proc.stdout.close()
+    want = paint_ui.apply_op(want, spec)
+    with np.load(log_path) as f:
+        frames = f["frames"]
+    log(f"[edit] paint_ui (pid {proc.pid}, port {port}, exit {rc}): page "
+        f"{len(page)} B, /labels {mask.shape}, /op {spec!r}: "
+        f"{d['msg']!r}, /save: {msg!r}; edit log {frames.shape}; HTTP "
+        f"round trips {http_s * 1e3:.1f} ms")
+    if not ("FENeRF mask painter" in page and np.array_equal(mask, out)
+            and np.array_equal(opped, want)
+            and np.array_equal(read_png(painted), want)
+            and frames.shape == (3,) + want.shape
+            and np.array_equal(frames[-1], want)
+            and np.array_equal(frames[0], out)):
+        raise AssertionError("paint_ui's map differs from apply_op's")
+    return painted, log_path
+
+
+def _edit_invert(parsed, painted, inv_ckpt, tmp) -> dict:
+    """Invert against the JPEG photo and the edited map on the kernels
+    (kernel_train, the ray kernels on), with a 1-frame reconstruction video
+    whose RGB panel is the replay's side image; finite losses that fall,
+    launches equal to the iterations and the eval renders."""
+    from fenerf_tpu_torch.apps import invert
+    from fenerf_tpu_torch.utils.image import save_png
+    from fenerf_tpu_torch.utils.video import read_avi
+
+    zero_counts()
+    res = invert.main(["edit", "--ckpt", inv_ckpt, "--image_path",
+                       parsed["photo"], "--seg_path", painted,
+                       "--save_dir", os.path.join(tmp, "edit_inv"),
+                       "--render_video", "--num_frames", "1", *EDIT_INVERT])
+    evals = len(res.mious) + 1   # + the video's frame
+    counts = _edit_counts(read_counts(), {
+        "film_mlp": EDIT_ITERATIONS + 16 * evals,
+        "film_mlp_bwd": EDIT_ITERATIONS, "ray_resample": 8 * evals,
+        "ray_finalize": 8 * evals}, "invert")
+    first, last = (float(np.mean(x)) for x in (res.losses[:5],
+                                               res.losses[-5:]))
+    log(f"[edit] invert on the photo and the edited map: "
+        f"{len(res.losses)} iterations, loss {res.losses[0]:.5f} -> "
+        f"{res.losses[-1]:.5f} (mean of the first 5 {first:.5f}, of the "
+        f"last 5 {last:.5f}), mIoU {np.round(res.mious, 4).tolist()}; "
+        f"{res.ms_per_iteration:.2f} ms per iteration, {res.ms_per_eval:.2f} "
+        f"ms per eval render; launches {counts}")
+    if not (np.isfinite(res.losses).all() and last < first):
+        raise AssertionError("the edit inversion's losses did not fall")
+    frames, _ = read_avi(res.video)
+    side = os.path.join(tmp, "inversion.png")
+    save_png(side, frames[0][:, :frames.shape[1]])
+    return {"side": side, "launches": counts,
+            "ms_per_iteration": res.ms_per_iteration,
+            "ms_per_eval": res.ms_per_eval}
+
+
+def _edit_replay(log_path, side, tmp) -> None:
+    """Replay: edit_log_video --side the inversion's render; the .avi read
+    back equal to log_to_frames."""
+    from fenerf_tpu_torch.apps import edit_log_video
+    from fenerf_tpu_torch.data.native_loader import read_image
+    from fenerf_tpu_torch.utils.video import read_avi
+
+    out = os.path.join(tmp, "replay.avi")
+    t0 = time.perf_counter()
+    edit_log_video.main(["--log", log_path, "--out", out, "--side", side])
+    seconds = time.perf_counter() - t0
+    with np.load(log_path) as f:
+        want = np.stack(edit_log_video.log_to_frames(
+            f["frames"], read_image(side, "RGB")))
+    back, fps = read_avi(out)
+    log(f"[edit] edit_log_video: {back.shape} at {fps} fps in "
+        f"{seconds:.2f} s")
+    if not (np.array_equal(back, want) and back.shape[2] == 2 * back.shape[1]):
+        raise AssertionError("the replay video differs from log_to_frames")
+
+
+def _edit_score(ckpt, tmp, dev) -> dict:
+    """Score: 2 x EDIT_SCORE_IMAGES renders of the serving checkpoint
+    (128^2, random cameras, the kernels) in two directories; eval_metrics
+    (fid, kid, isc) between them and of one against itself, stand-in
+    InceptionV3 weights on the card."""
+    from fenerf_tpu_torch.apps import eval_metrics
+    from fenerf_tpu_torch.apps.common import load_generator
+    from fenerf_tpu_torch.eval import fid as fidlib
+    from fenerf_tpu_torch.models import generator as gen
+    from fenerf_tpu_torch.nn import fields, inception
+    from fenerf_tpu_torch.ops import film_mlp
+    from fenerf_tpu_torch.utils.image import save_png, to_uint8
+
+    _, params, _, cfg, _ = load_generator(ckpt, device=dev)
+    params = film_mlp.with_pack(
+        fields.with_grid_table(params, cfg, torch.bfloat16), cfg)
+    rcfg = gen.RenderConfig(img_size=128, num_steps=48, ray_chunk=4096,
+                            fill_mode="seg_padding_background",
+                            compute_dtype="bfloat16", backend="kernel")
+    g = torch.Generator(device=dev).manual_seed(21)
+    dirs = [os.path.join(tmp, f"score_{k}") for k in "ab"]
+    zero_counts()
+    for d in dirs:
+        z = torch.randn(EDIT_SCORE_IMAGES, cfg.z_geo_dim, generator=g,
+                        device=dev)
+        with torch.no_grad():
+            pix = gen.render_from_z(params, cfg, rcfg, z, z, generator=g)
+        pix = pix["pixels"][:, -3:].float().cpu().numpy()
+        for i, img in enumerate(to_uint8(pix, normalize=False)):
+            save_png(os.path.join(d, f"{i:03d}.png"), img.transpose(1, 2, 0))
+    blocks = 128 * 128 // 4096 * len(dirs)
+    render_n = _edit_counts(read_counts(), {
+        "film_mlp": 2 * blocks, "ray_resample": blocks,
+        "ray_finalize": blocks}, "the score renders")
+    weights = os.path.join(tmp, "inception_edit.npz")
+    inception.export_npz(inception.init_inception(
+        torch.Generator().manual_seed(0)), weights)
+    old = os.environ.get(fidlib.WEIGHTS_ENV)
+    os.environ[fidlib.WEIGHTS_ENV] = weights
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        pair = eval_metrics.main(["--real_dir", dirs[0], "--gen_dir",
+                                  dirs[1], "--metrics", "fid", "kid", "isc"])
+        pair_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self_ = eval_metrics.main(["--real_dir", dirs[0], "--gen_dir",
+                                   dirs[0], "--metrics", "fid", "kid"])
+        self_s = time.perf_counter() - t0
+        _edit_counts(read_counts(), {}, "eval_metrics")
+    finally:
+        if old is None:
+            os.environ.pop(fidlib.WEIGHTS_ENV, None)
+        else:
+            os.environ[fidlib.WEIGHTS_ENV] = old
+    log(f"[edit] eval_metrics ({EDIT_SCORE_IMAGES} vs {EDIT_SCORE_IMAGES} "
+        f"renders, stand-in Inception): {json.dumps(pair)} in {pair_s:.2f} s; "
+        f"a directory against itself: fid {self_['fid']:.3e}, kid mean "
+        f"{self_['kid_mean']:.3e} (below {EDIT_FID_SELF} / {EDIT_KID_SELF}) "
+        f"in {self_s:.2f} s")
+    if not (all(math.isfinite(v) for v in pair.values())
+            and abs(self_["fid"]) < EDIT_FID_SELF
+            and abs(self_["kid_mean"]) < EDIT_KID_SELF):
+        raise AssertionError(f"eval_metrics: {pair}, {self_}")
+    return {"metrics_s": pair_s, "launches": render_n}
+
+
+def write_hd_checkpoint(dev, tmp) -> str:
+    """SPATIALSIRENSEMANTICHD at its published widths (hidden 256, z 256;
+    64 label and 64 RGB feature channels), random weights (seed 5), sigma
+    bias SIGMA_BIAS, with stand-in neural-renderer heads (64^2 -> 256^2:
+    RGB, and 19 label channels without the final sigmoid)."""
+    from fenerf_tpu_torch.apps.common import save_generator
+    from fenerf_tpu_torch.nn import fields
+    from fenerf_tpu_torch.nn import neural_renderer as nr
+
+    cfg = fields.get_config(HD)
+    params = fields.init_field(torch.Generator(device=dev).manual_seed(5),
+                               cfg, device=dev)
+    params["sigma_head"]["b"] = params["sigma_head"]["b"] + SIGMA_BIAS
+    heads = {}
+    for key, out_dim, act in (("nr_img", 3, True), ("nr_seg", 19, False)):
+        ncfg = nr.NeuralRendererConfig(n_feat=64, input_dim=64,
+                                       out_dim=out_dim, final_actvn=act,
+                                       img_size=HD_SIZE,
+                                       input_size=HD_FEATURES)
+        heads[key] = (nr.init_neural_renderer(
+            torch.Generator().manual_seed(out_dim), ncfg), ncfg)
+    ckpt = os.path.join(tmp, "generator_hd.npz")
+    save_generator(ckpt, params, params, params, HD, step=0,
+                   neural_renderers=heads)
+    log(f"[edit] wrote {HD} checkpoint (output {cfg.output_dim}, hidden "
+        f"{cfg.hidden_dim}) with nr_img / nr_seg heads "
+        f"({os.path.getsize(ckpt) / 2**20:.0f} MiB)")
+    return ckpt
+
+
+def _edit_hd(tmp, dev) -> dict:
+    """HD: render_multiview --hd on the HD checkpoint (two sheets, the
+    second timed warm), the field kernel and the ray kernels on; one view's
+    features on the field kernel against the field's torch route at bf16
+    (RENDER_TOL), and the heads on the card against the CPU at f32
+    (NR_TOL)."""
+    from fenerf_tpu_torch.apps import render_multiview
+    from fenerf_tpu_torch.apps.common import load_neural_renderers
+    from fenerf_tpu_torch.compat.jax_bridge import tree_map
+    from fenerf_tpu_torch.models import generator as gen
+    from fenerf_tpu_torch.nn.neural_renderer import apply_neural_renderer
+    from fenerf_tpu_torch.utils.image import read_png
+
+    ckpt = write_hd_checkpoint(dev, tmp)
+    d = os.path.join(tmp, "multiview_hd")
+    zero_counts()
+    sheets = render_multiview.main(["--ckpt", ckpt, "--hd", "--image_size",
+                                    str(HD_SIZE), "--seeds",
+                                    *MULTIVIEW_SEEDS, "--output_dir", d])
+    blocks = 5 * len(sheets) * (HD_FEATURES ** 2 // 4096)
+    counts = _edit_counts(read_counts(), {
+        "film_mlp": 2 * blocks, "ray_resample": blocks,
+        "ray_finalize": blocks}, "render_multiview --hd")
+    size = (HD_SIZE + 4, 5 * (HD_SIZE + 2) + 2, 3)
+    for seed, v, _ in sheets:
+        if not (v.shape == (5, 22, HD_SIZE, HD_SIZE)
+                and np.isfinite(v).all()):
+            raise AssertionError(f"bad HD views {v.shape}")
+        for kind in ("img", "seg"):
+            if read_png(os.path.join(d, f"{kind}_{seed}.png")).shape != size:
+                raise AssertionError(f"HD {kind}_{seed}.png")
+    # one view's features: field kernel vs the field's torch route (bf16),
+    # the CLI's settings, films and draws, the ray kernels off on both
+    params, cfg, fg, fa = _app_films(ckpt, int(MULTIVIEW_SEEDS[0]), dev, 0.7)
+    feats = {}
+    for backend in ("kernel", "torch"):
+        rcfg = gen.RenderConfig(img_size=HD_FEATURES, num_steps=48,
+                                fill_mode=None, ray_chunk=4096,
+                                compute_dtype="bfloat16", backend=backend)
+        with ray_kernels("never"), torch.no_grad():
+            feats[backend] = gen.render(
+                params, cfg, rcfg, fg, fa, 1,
+                camera=(math.pi / 2, math.pi / 2, 12.0),
+                generator=torch.Generator(device=dev).manual_seed(0))[
+                    "pixels"].float()
+    field_err = float((feats["kernel"] - feats["torch"]).abs().max())
+    # the heads on the card against the CPU, on the kernel's features
+    nrs = load_neural_renderers(ckpt, device=dev)
+    x = (feats["kernel"] + 1.0) * 0.5
+    nr_err = 0.0
+    for key, sl in (("nr_seg", slice(0, 64)), ("nr_img", slice(64, 128))):
+        p, ncfg = nrs[key]
+        with torch.no_grad():
+            got = apply_neural_renderer(p, ncfg, x[:, sl]).cpu()
+            ref = apply_neural_renderer(tree_map(lambda t: t.cpu(), p), ncfg,
+                                        x[:, sl].cpu())
+        nr_err = max(nr_err, float((got - ref).abs().max()
+                                   / ref.abs().max()))
+    log(f"[edit] render_multiview --hd ({HD_FEATURES}^2 features x 48 + 48 "
+        f"steps -> {HD_SIZE}^2): {sheets[1][2]:.1f} ms per 5-view HD sheet "
+        f"(first {sheets[0][2]:.1f}); launches {counts}; one view's "
+        f"features, max|field kernel - torch field route (bf16)| "
+        f"{field_err:.3e} (tol {RENDER_TOL}); the heads card vs CPU "
+        f"max|diff|/max {nr_err:.2e} (tol {NR_TOL})")
+    if not (field_err <= RENDER_TOL and nr_err <= NR_TOL):
+        raise AssertionError(f"HD: field {field_err}, heads {nr_err}")
+    return {"ms_per_sheet": sheets[1][2], "launches": counts,
+            "field_err": field_err, "nr_err": nr_err}
+
+
+def phase_edit_loop(ckpt, inv_ckpt, tmp, dev) -> dict:
+    """5g, the editing workflow's mask half on the card: parse, edit and
+    paint, invert, replay, score, HD (the helpers above), the ray kernels
+    on. Returns its numbers and its launches (the face and score renders,
+    the inversion and the HD sheets)."""
+    t0 = time.perf_counter()
+    with ray_kernels("auto"):
+        parsed = _edit_parse(ckpt, tmp, dev)
+        painted, log_path = _edit_masks(parsed, tmp)
+        inverted = _edit_invert(parsed, painted, inv_ckpt, tmp)
+        _edit_replay(log_path, inverted["side"], tmp)
+        scored = _edit_score(ckpt, tmp, dev)
+        hd = _edit_hd(tmp, dev)
+    parts = (parsed, inverted, scored, hd)
+    launches = {k: sum(p["launches"].get(k, 0) for p in parts)
+                for k in parsed["launches"]}
+    seconds = time.perf_counter() - t0
+    log(f"[edit] the edit loop in {seconds:.1f} s on {card()}: BiSeNet "
+        f"{parsed['ms_bisenet']:.2f} ms per {EDIT_PARSE_SIZE}^2 image in "
+        f"the CLI (cold), {parsed['ms_bisenet_warm'][1]:.3f} warm, "
+        f"prepare_segmaps {parsed['s_per_image']:.3f} s per image (cold), "
+        f"{parsed['s_per_image_warm']:.4f} warm, invert "
+        f"{inverted['ms_per_iteration']:.2f} ms per iteration, HD sheet "
+        f"{hd['ms_per_sheet']:.1f} ms, eval_metrics {scored['metrics_s']:.2f} "
+        f"s; launches {launches}")
+    return {"launches": launches, "seconds": seconds,
+            "ms_bisenet": parsed["ms_bisenet"],
+            "ms_bisenet_warm": parsed["ms_bisenet_warm"],
+            "s_per_image": parsed["s_per_image"],
+            "ms_per_iteration": inverted["ms_per_iteration"],
+            "ms_per_hd_sheet": hd["ms_per_sheet"]}
+
+
+# ---------------------------------------------------------------------------
 # the latent-grid family's training: CelebA_latent_grid stage 0 at full
 # width (SPATIALSIRENGRID at its published widths; bs 48, split 16, 64^2,
 # 12 + 12 steps). No kernel is on its path: the JAX trainer runs this
@@ -2999,9 +3567,9 @@ def run_phases(dev: torch.device) -> dict:
             f"{serve['auto']['ms_per_request']:.1f}")
         multiview = timed("multiview", phase_multiview, ckpt, tmp, dev)
         timed("shapes", phase_shapes, ckpt, tmp)
-        inverted = timed("invert", phase_invert, write_checkpoint(
-            dev, tmp, INVERT_SIGMA_BIAS, INVERT_HEAD_GAIN,
-            "generator_invert.npz"), tmp, dev)
+        inv_ckpt = write_checkpoint(dev, tmp, INVERT_SIGMA_BIAS,
+                                    INVERT_HEAD_GAIN, "generator_invert.npz")
+        inverted = timed("invert", phase_invert, inv_ckpt, tmp, dev)
         # config 4: video of both families, the grid family's other paths
         grid_ckpt = write_grid_checkpoint(dev, tmp)
         grid_video = timed("grid video", phase_grid_video, grid_ckpt, tmp,
@@ -3015,6 +3583,8 @@ def run_phases(dev: torch.device) -> dict:
             f"{film_video['ms_per_frame_torch']:.1f}); grid sheet "
             f"{grid_apps['ms_per_sheet']:.1f} ms, grid volume "
             f"{grid_apps['volume_s']:.2f} s")
+        # 5g: the editing workflow's mask half
+        edit = timed("edit loop", phase_edit_loop, ckpt, inv_ckpt, tmp, dev)
     timed("render", phase_render, dev)
     bwd = timed("backward", phase_backward, dev)
     # the backward at invert's shape (phase 5c) beside phase 7's shapes
@@ -3047,7 +3617,9 @@ def run_phases(dev: torch.device) -> dict:
         family on both ray routes, the film family on the kernels), the
         grid family's multiview sheet, the trainer's CLI (stage 0, its
         resume and the 64^2 stage) and the grid family's training (none:
-        the path has no kernel, as the JAX trainer's has none)."""
+        the path has no kernel, as the JAX trainer's has none) and the
+        edit loop (its face and score renders, its inversion, its HD
+        sheets)."""
         by_path = {"serve": sum(r["launches"][name] for r in serve.values()),
                    "train": (train_off["launches"][name]
                              + train_on["launches"][name]),
@@ -3061,7 +3633,8 @@ def run_phases(dev: torch.device) -> dict:
                    "train_cli": sum(r.get(name, 0) for r in
                                     train_cli["launches"].values()),
                    "grid_train": sum(r.get(name, 0) for r in
-                                     grid_train["launches"].values())}
+                                     grid_train["launches"].values()),
+                   "edit": edit["launches"][name]}
         return {"launches": sum(by_path.values()),
                 **{f"launches_{k}": v for k, v in by_path.items()}}
 

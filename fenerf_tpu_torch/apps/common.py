@@ -3,12 +3,15 @@ interpolation for the port's apps (port of fenerf_tpu/apps/common.py).
 
 The checkpoint is the JAX package's `.npz`: `__config__` JSON (model,
 step, family "film" or "grid", field_kwargs, n_params / n_ema / n_ema2)
-plus `params_{i}` / `ema_{i}` / `ema2_{i}` leaves in jax.tree_util order.
+plus `params_{i}` / `ema_{i}` / `ema2_{i}` leaves in jax.tree_util order,
+and for an HD checkpoint the neural renderers' `nr_img_{i}` / `nr_seg_{i}`
+leaves with `nr_img_cfg` / `nr_seg_cfg` in the JSON.
 A checkpoint written by either package loads in the other, for both
 families.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -21,15 +24,22 @@ from fenerf_tpu_torch.compat import jax_bridge
 from fenerf_tpu_torch.models import generator as genlib
 from fenerf_tpu_torch.nn import fields
 from fenerf_tpu_torch.nn import latent_grid_field as lgf
+from fenerf_tpu_torch.nn.neural_renderer import (NeuralRendererConfig,
+                                                 init_neural_renderer)
 from fenerf_tpu_torch.ops import film_mlp
 
 TREES = ("params", "ema", "ema2")
+NEURAL_RENDERERS = ("nr_img", "nr_seg")
 
 
 def save_generator(path: str, params: Any, ema_params: Any, ema2_params: Any,
-                   model: str, step: int,
-                   field_kwargs: dict | None = None) -> None:
-    """Write a generator checkpoint of either family (atomic rename)."""
+                   model: str, step: int, field_kwargs: dict | None = None,
+                   neural_renderers: dict | None = None) -> None:
+    """Write a generator checkpoint of either family (atomic rename).
+    neural_renderers: optional {"nr_img" / "nr_seg": (params, cfg)}, the
+    HD path's upsampler heads (StyleGenerator3d's neural_renderer_img /
+    _seg, generators.py:914-1018), stored beside the field's trees as
+    the JAX package stores them; load_neural_renderers reads them."""
     if lgf.is_grid_model(model):
         family = "grid"
     elif model in fields.VARIANTS:
@@ -39,7 +49,13 @@ def save_generator(path: str, params: Any, ema_params: Any, ema2_params: Any,
     config = {"model": model, "step": int(step), "family": family,
               "field_kwargs": field_kwargs or {}}
     arrays = {}
-    for name, tree in zip(TREES, (params, ema_params, ema2_params)):
+    trees = list(zip(TREES, (params, ema_params, ema2_params)))
+    for key, (nr_params, nr_cfg) in (neural_renderers or {}).items():
+        if key not in NEURAL_RENDERERS:
+            raise ValueError(f"unknown neural renderer {key!r}")
+        config[f"{key}_cfg"] = dataclasses.asdict(nr_cfg)
+        trees.append((key, nr_params))
+    for name, tree in trees:
         leaves = jax_bridge.tree_leaves(jax_bridge.to_numpy_tree(tree))
         for i, leaf in enumerate(leaves):
             arrays[f"{name}_{i}"] = leaf
@@ -84,6 +100,30 @@ def load_generator(path: str, device="cuda"):
             return jax_bridge.tree_unflatten(template, leaves)
 
         return tree("params"), tree("ema"), tree("ema2"), cfg, config
+
+
+def load_neural_renderers(path: str, device="cuda") -> dict:
+    """-> {"nr_img" / "nr_seg": (params on `device`,
+    NeuralRendererConfig)}, the HD heads save_generator stored (either
+    package's); an empty dict when the checkpoint has none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' to "
+                           "load the neural renderers on the CPU")
+    out = {}
+    with np.load(path, allow_pickle=False) as data:
+        config = json.loads(str(data["__config__"]))
+        for key in NEURAL_RENDERERS:
+            if f"{key}_cfg" not in config:
+                continue
+            cfg = NeuralRendererConfig(**config[f"{key}_cfg"])
+            template = init_neural_renderer(torch.Generator(), cfg,
+                                            device="meta")
+            leaves = [torch.from_numpy(np.asarray(data[f"{key}_{i}"]))
+                      .to(device=dev, dtype=torch.float32)
+                      for i in range(config[f"n_{key}"])]
+            out[key] = (jax_bridge.tree_unflatten(template, leaves), cfg)
+    return out
 
 
 def best_backend(cfg: Any, device, train: bool = False) -> str:

@@ -24,12 +24,13 @@ On the card a step's render runs through the fused forward and backward
 field kernels (backend 'kernel_train'); only the offsets take gradients.
 A step is a function of (offsets, optimizer state, draws): the W noise and
 the render's jitter are drawn before it and passed in (step_draws), so a
-test can replay it against the JAX package. Targets are PNG files
-(utils/image.py::read_png); other formats raise.
+test can replay it against the JAX package. Targets are JPEG or PNG
+files, decoded as PIL decodes them (data/native_loader.py::read_image);
+other formats raise.
 
 Usage:
   python -m fenerf_tpu_torch.apps.invert NAME --ckpt out/generator.npz \
-      --image_path face.png --seg_path face_seg.png --lambda_seg 1 \
+      --image_path face.jpg --seg_path face_seg.png --lambda_seg 1 \
       --lambda_img 1 [--load_offsets prior.npz] [--device cuda]
 """
 from __future__ import annotations
@@ -78,14 +79,16 @@ def miou(source_onehot, target_onehot) -> float:
 
 def load_targets(image_path, seg_path, image_size, background_mask,
                  white_background_mask=False, center_crop=True):
-    """PNG photo + label map -> (gt_image (1,3,S,S) in [-1,1], gt18
-    (1,18,S,S) in [-1,1], gt19 one-hot (1,19,256,256)), numpy. The same
-    geometry and conversions as the JAX package's PIL path."""
+    """Photo (JPEG or PNG) + label map -> (gt_image (1,3,S,S) in [-1,1],
+    gt18 (1,18,S,S) in [-1,1], gt19 one-hot (1,19,256,256)), numpy. The
+    same geometry and conversions as the JAX package's PIL path, the
+    images decoded as PIL decodes them (data/native_loader.py)."""
     from fenerf_tpu_torch.data.celeba_mask import _prep
-    from fenerf_tpu_torch.utils.image import read_png, resize, to_mode
+    from fenerf_tpu_torch.data.native_loader import read_image
+    from fenerf_tpu_torch.utils.image import resize
 
-    img = to_mode(read_png(image_path), "RGB")
-    seg = to_mode(read_png(seg_path), "L")
+    img = read_image(image_path, "RGB")
+    seg = read_image(seg_path, "L")
     if seg.shape != img.shape[:2]:
         seg = resize(seg, (img.shape[1], img.shape[0]), "nearest")
     if background_mask or white_background_mask:

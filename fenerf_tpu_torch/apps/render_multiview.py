@@ -8,7 +8,9 @@ seed. On the card the film family's field runs in the fused kernel
 (ops/film_mlp.py) and, with FENERF_RAY_KERNELS=auto, both families'
 hierarchical machinery in the per-ray kernels (ops/ray_finalize.py). The
 latent-grid family renders RGB only (white background fill, no seg sheet)
-from z, without W truncation.
+from z, without W truncation. --hd renders an *HD variant's features at
+image_size / the heads' upsampling and upsamples them with the
+checkpoint's neural renderers (models/generator.py::render_hd).
 
 Usage:
   python -m fenerf_tpu_torch.apps.render_multiview --ckpt out/generator.npz \
@@ -51,15 +53,14 @@ def main(argv=None):
                    help="hierarchical sampling + ray jitter off, f32 "
                         "compute: reproducible parity/debug mode")
     p.add_argument("--hd", action="store_true",
-                   help="not ported yet (ROADMAP A6)")
+                   help="HD path: volumetric features + the checkpoint's "
+                        "stored neural-renderer upsampler heads "
+                        "(StyleGenerator3d, generators.py:914-1018); "
+                        "--image_size is the UPSAMPLED output size")
     p.add_argument("--device", default="cuda",
                    help="torch device (raises if CUDA is requested and "
                         "absent)")
     args = p.parse_args(argv)
-    if args.hd:
-        raise NotImplementedError(
-            "--hd (the neural-renderer upsampler heads) is not ported yet: "
-            "ROADMAP A6, nn/neural_renderer.py and render_hd")
     if args.shard_rays:
         raise NotImplementedError(
             "--shard_rays (the rays of an image over several GPUs) is not "
@@ -68,6 +69,7 @@ def main(argv=None):
     import torch
 
     from fenerf_tpu_torch.apps.common import (best_backend, load_generator,
+                                              load_neural_renderers,
                                               route_line)
     from fenerf_tpu_torch.models import generator as gen
     from fenerf_tpu_torch.nn import fields
@@ -84,14 +86,31 @@ def main(argv=None):
     if is_grid and args.fill_mode == "seg_padding_background":
         args.fill_mode = "eval_white_back"   # the grid family is RGB-only
 
+    nrs = {}
+    render_size = args.image_size
+    if args.hd:
+        if is_grid:
+            raise ValueError("--hd is a film-family path")
+        nrs = load_neural_renderers(args.ckpt, device=dev)
+        if "nr_img" not in nrs:
+            raise ValueError(f"{args.ckpt} stores no neural-renderer heads "
+                             "(--hd needs an HD checkpoint)")
+        nr_cfg = nrs["nr_img"][1]
+        up = nr_cfg.img_size // nr_cfg.input_size
+        if args.image_size % up:
+            raise ValueError(f"--image_size {args.image_size} is not a "
+                             f"multiple of the heads' upsampling {up}")
+        render_size = args.image_size // up   # the feature resolution
+
     # reference default budget: num_steps x multiplier COARSE samples plus
     # an equal hierarchical fine pass (48 + 48 = 96 total at the defaults,
     # render_multiview_images_double_semantic.py:44 + generators.py:452-527)
     rcfg = gen.RenderConfig(
-        img_size=args.image_size,
+        img_size=render_size,
         num_steps=args.num_steps * args.ray_step_multiplier,
         hierarchical=not args.deterministic, perturb=not args.deterministic,
-        fill_mode=args.fill_mode, fill_color=args.fill_color, fov=args.fov,
+        fill_mode=None if args.hd else args.fill_mode,
+        fill_color=args.fill_color, fov=args.fov,
         ray_chunk=args.ray_chunk,
         compute_dtype="float32" if args.deterministic else "bfloat16",
         backend=best_backend(fcfg, dev))
@@ -139,17 +158,23 @@ def main(argv=None):
                 film_app = fields.truncate_film(film_app, avg[1], args.psi)
 
                 def render_view(camera):
+                    g = torch.Generator(device=dev).manual_seed(0)
+                    if args.hd:
+                        nr_seg = nrs.get("nr_seg", (None, None))
+                        return gen.render_hd(
+                            params, fcfg, rcfg, film_geo, film_app, 1,
+                            *nrs["nr_img"], *nr_seg, camera=camera,
+                            generator=g)
                     return gen.render(
                         params, fcfg, rcfg, film_geo, film_app, batch_size=1,
-                        camera=camera,
-                        generator=torch.Generator(device=dev).manual_seed(0))
+                        camera=camera, generator=g)
             segs, views = [], []
             for off in YAW_OFFSETS:
                 out = render_view((math.pi * 0.5, math.pi * 0.5 + off,
                                    args.fov))
                 pix = out["pixels"].float().cpu().numpy()
                 views.append(pix[0])
-                if fcfg.n_labels:
+                if ("nr_seg" in nrs) if args.hd else fcfg.n_labels:
                     segs.append(mask2color(pix[:, :-3])[0])
             views = np.stack(views)
             grid = make_grid(

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fenerf_tpu_torch.utils.precision import exact_convs
+
 # VGG16 conv plan: (out_channels, n_convs) per stage; LPIPS taps the output
 # of each stage's last ReLU
 _VGG_STAGES = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
@@ -60,11 +62,7 @@ def _vgg_features(params, x):
 def lpips_distance(params, x, y):
     """Perceptual distance between (B, 3, H, W) images in [-1, 1], summed
     over the batch (as the JAX function)."""
-    with torch.backends.cudnn.flags(
-            enabled=torch.backends.cudnn.enabled,
-            benchmark=torch.backends.cudnn.benchmark,
-            deterministic=torch.backends.cudnn.deterministic,
-            allow_tf32=False):
+    with exact_convs(deterministic=False):
         fx = _vgg_features(params, x)
         fy = _vgg_features(params, y)
         total = 0.0

@@ -34,6 +34,7 @@ from fenerf_tpu_torch.core import integrate as integ
 from fenerf_tpu_torch.core import rays as raylib
 from fenerf_tpu_torch.nn import fields
 from fenerf_tpu_torch.nn import latent_grid_field as lgf
+from fenerf_tpu_torch.nn.neural_renderer import apply_neural_renderer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -500,6 +501,36 @@ def render_truncated(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,
     return render(params, fcfg, rcfg, film_geo, film_app,
                   batch_size=z_geo.shape[0], noise_std=noise_std,
                   camera=camera, generator=generator, draws=draws)
+
+
+def render_hd(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,
+              film_geo, film_app, batch_size: int, nr_img_params, nr_img_cfg,
+              nr_seg_params=None, nr_seg_cfg=None, noise_std=0.0,
+              camera: tuple | None = None,
+              generator: torch.Generator | None = None,
+              draws: RenderDraws | None = None) -> dict[str, torch.Tensor]:
+    """StyleGenerator3d's path (generators.py:914-1018): a volumetric
+    render at the feature resolution (rcfg.img_size) of an *HD variant's
+    64-channel features, then the neural renderer's upsampling to RGB
+    (nn/neural_renderer.py) and, with a seg head, the first 64 channels
+    (label features) through their own renderer. rcfg.fill_mode should be
+    None: the composite is features, not labels and RGB."""
+    out = render(params, fcfg, rcfg, film_geo, film_app, batch_size,
+                 noise_std, camera, generator, draws)
+    # undo render_core's * 2 - 1: the reference feeds the raw composite to
+    # the renderer and maps only the final RGB to [-1, 1]
+    # (generators.py:1008-1018)
+    feats = (out["pixels"].float() + 1.0) * 0.5
+    if nr_seg_params is not None:
+        labels = apply_neural_renderer(nr_seg_params, nr_seg_cfg,
+                                       feats[:, :64])
+        images = apply_neural_renderer(nr_img_params, nr_img_cfg,
+                                       feats[:, 64:])
+        pixels = torch.cat([labels, images], dim=1) * 2.0 - 1.0
+    else:
+        pixels = apply_neural_renderer(nr_img_params, nr_img_cfg,
+                                       feats) * 2.0 - 1.0
+    return {**out, "pixels": pixels}
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ and a final 2x2 conv emitting [score(1) | z_geo | z_app | pose(2)].
 Parameters keep the JAX layout (HWIO conv weights), so trees copy across
 leaf for leaf (compat/jax_bridge.py); each conv permutes to OIHW. Images
 are NCHW. Every conv runs with cuDNN's TF32 off: float32 convolutions in
-full float32, as the JAX package's.
+full float32, as the JAX package's; the trainer keeps it off in their
+backward (utils/precision.py::exact_convs).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from fenerf_tpu_torch.nn import init as winit
+from fenerf_tpu_torch.utils.precision import exact_convs
 
 Params = Any
 
@@ -65,11 +67,7 @@ def init_discriminator(gen: torch.Generator, cfg: DiscriminatorConfig,
 
 def _conv(x, p, stride=1, pad=0):
     """NCHW conv with an HWIO weight and symmetric padding, TF32 off."""
-    with torch.backends.cudnn.flags(
-            enabled=torch.backends.cudnn.enabled,
-            benchmark=torch.backends.cudnn.benchmark,
-            deterministic=torch.backends.cudnn.deterministic,
-            allow_tf32=False):
+    with exact_convs(deterministic=False):
         return F.conv2d(x, p["w"].permute(3, 2, 0, 1), p["b"],
                         stride=stride, padding=pad)
 

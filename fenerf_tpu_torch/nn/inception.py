@@ -14,7 +14,7 @@ layout are the JAX package's: "<block>/<branch>/w" in HWIO, "scale",
 makes stand-in weights from a torch.Generator (shape and pipeline tests
 only, not a valid FID scorer).
 
-Convolutions run with TF32 off (F4) through ops/upfirdn2d.exact_convs.
+Convolutions run with TF32 off (F4) through utils/precision.exact_convs.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fenerf_tpu_torch.ops.upfirdn2d import exact_convs
+from fenerf_tpu_torch.utils.precision import exact_convs, exact_matmuls
 
 Params = Any
 
@@ -163,13 +163,9 @@ def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
     b, h, w, c = images.shape
     wh = _resize_weights(h, size, images.device)
     ww = _resize_weights(w, size, images.device)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False   # F4
-    try:
+    with exact_matmuls():   # F4
         x = torch.einsum("oh,bhwc->bowc", wh, images)
         return torch.einsum("pw,bowc->bopc", ww, x)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def inception_pool3(params: Params, images: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ function as per-sample weights and grouped convolutions. Parameters keep
 the JAX layouts (a conv weight is HWIO (kh, kw, in, out), a linear's
 (in, out)), so a checkpoint copies across leaf for leaf. Every convolution
 runs with TF32 off (ROADMAP F4) on cuDNN's deterministic algorithms
-(ops/upfirdn2d.py::exact_convs), forward and backward.
+(utils/precision.py::exact_convs), forward and backward.
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ As in the JAX package, each resample is one depthwise convolution
 (F.conv2d with groups = channels); the zero-upsampling is written out
 before it, `up - 1` zeros after every sample, the JAX package's padding
 rule. The convolutions (these and nn/stylegan.py's) run with TF32 off
-(ROADMAP F4) and cuDNN's deterministic algorithms (exact_convs), in the
-forward and in the backward the trainer's G phase runs through them.
+(ROADMAP F4) and cuDNN's deterministic algorithms
+(utils/precision.py::exact_convs), in the forward and in the backward the
+trainer's G phase runs through them.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from fenerf_tpu_torch.utils.precision import exact_convs
 
 
 def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor | None = None,
@@ -39,19 +42,6 @@ def make_kernel(k, gain: float = 1.0, device="cpu") -> torch.Tensor:
     if k.ndim == 1:
         k = k[None, :] * k[:, None]
     return k / k.sum() * gain
-
-
-def exact_convs():
-    """cuDNN with TF32 off (F4) and deterministic algorithms only: the
-    latent plane must be the same function of z at every call (cuDNN's
-    default choice for the transposed convolution sums in a varying order:
-    ~1.5e-6 apart from call to call on an H100, as
-    scripts/profile_torch_grid_frame.py measures), so that a frame
-    rendered in ray blocks equals the frame rendered whole. cudnn.flags()
-    alone would disable cuDNN (T6)."""
-    return torch.backends.cudnn.flags(
-        enabled=torch.backends.cudnn.enabled, benchmark=False,
-        deterministic=True, allow_tf32=False)
 
 
 def _conv_backward(*args):

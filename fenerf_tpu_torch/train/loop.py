@@ -18,6 +18,9 @@ One call is one optimizer step of each of the three networks:
     D_seg phase; its field has no kernel, so every render of its step
     takes the torch route (film_mlp.backend_for), as the JAX trainer's
     take XLA's, the ray machinery included.
+  * The critics' convolutions run with cuDNN's TF32 off in every
+    direction: each phase computes its loss and its gradients inside one
+    utils/precision.py::exact_convs(deterministic=False) (ROADMAP F6).
   * With a DiffAugment policy (meta.diff_augment_policy) D_img's reals
     and fakes take one augmentation and each G microbatch's fakes one of
     their own before the image critic, never the seg critic's inputs;
@@ -53,6 +56,7 @@ from fenerf_tpu_torch.train import ema as emalib
 from fenerf_tpu_torch.train.diff_augment import (diff_augment,
                                                  make_augment_draws)
 from fenerf_tpu_torch.train.curriculum import StageMeta
+from fenerf_tpu_torch.utils.precision import exact_convs
 
 Params = Any
 
@@ -443,10 +447,14 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
     fake_pix, fake_pos, metrics["fake_opacity"] = _render_fakes(
         render_params, fcfg, rcfg, zg, za, draws.fakes_img, scal.noise_std)
     d = _leaf_copy(state.d_img_params)
-    loss = _d_loss(d, meta.disc_img_config(), meta, aug(real_imgs),
-                   aug(fake_pix[:, -3:]), zg, za, fake_pos, scal.alpha)
+    # the critics' convolutions exact in every direction: forward, backward
+    # and R1's double backward inside one `with`
+    with exact_convs(deterministic=False):
+        loss = _d_loss(d, meta.disc_img_config(), meta, aug(real_imgs),
+                       aug(fake_pix[:, -3:]), zg, za, fake_pos, scal.alpha)
+        grads = _grads(loss, d)
     opt_img = make_d_optimizer(meta, "img").step(
-        state.d_img_params, _grads(loss, d), state.opt_img)
+        state.d_img_params, grads, state.opt_img)
     metrics["d_img_loss"] = loss.detach()
 
     # ---------------- D_seg ----------------
@@ -458,11 +466,13 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
             render_params, fcfg, rcfg, zg, za, draws.fakes_seg,
             scal.noise_std)
         d = _leaf_copy(state.d_seg_params)
-        loss = _d_loss(d, meta.disc_seg_config(), meta,
-                       torch.cat([real_labels, real_imgs], dim=1), fake_pix,
-                       zg, za, fake_pos, scal.alpha)
+        with exact_convs(deterministic=False):
+            loss = _d_loss(d, meta.disc_seg_config(), meta,
+                           torch.cat([real_labels, real_imgs], dim=1),
+                           fake_pix, zg, za, fake_pos, scal.alpha)
+            grads = _grads(loss, d)
         opt_seg = make_d_optimizer(meta, "seg").step(
-            state.d_seg_params, _grads(loss, d), state.opt_seg)
+            state.d_seg_params, grads, state.opt_seg)
         metrics["d_seg_loss"] = loss.detach()
 
     # ---------------- G ----------------
@@ -474,11 +484,12 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
     for i in range(n):
         rp = _leaf_copy(render_params)
         sl = slice(i * bs, (i + 1) * bs)
-        loss, (li, ls) = _g_loss(
-            rp, state.d_img_params, state.d_seg_params, fcfg, g_rcfg, meta,
-            zg[sl], za[sl], scal, s if n == 1 else 1, draws.g_renders[i],
-            draws.aug_g[i] if policy else None)
-        grads = _grads(loss, rp)
+        with exact_convs(deterministic=False):
+            loss, (li, ls) = _g_loss(
+                rp, state.d_img_params, state.d_seg_params, fcfg, g_rcfg,
+                meta, zg[sl], za[sl], scal, s if n == 1 else 1,
+                draws.g_renders[i], draws.aug_g[i] if policy else None)
+            grads = _grads(loss, rp)
         # f32 accumulation over microbatches (the table's cotangent too)
         g_grads = grads if g_grads is None else tree_unflatten(grads, [
             a + c for a, c in zip(tree_leaves(g_grads), tree_leaves(grads))])

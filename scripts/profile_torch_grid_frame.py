@@ -10,8 +10,8 @@ then renders render_video's first frame at the CLI's defaults (128^2,
 apps/render_video.py::frame_renderer:
   * the latent plane 8 times from the same z, the largest |difference|
     from the first, with the StyleGAN convolutions on cuDNN's
-    deterministic algorithms (ops/upfirdn2d.py::exact_convs, as the port
-    runs them) and on cuDNN's default choice (TF32 off in both);
+    deterministic algorithms (utils/precision.py::exact_convs, as
+    ops/upfirdn2d.py runs them) and on cuDNN's default choice (TF32 off in both);
   * ms per frame on the host clock (each frame ends in a device sync),
     min / median / max over --frames, and the peak device memory;
   * one frame under torch.profiler: device time by kernel name, grouped

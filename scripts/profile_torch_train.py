@@ -18,14 +18,24 @@ Prints:
     with R1 and its gradient (D_img), one G microbatch forward (render +
     critics) and its backward, the table fold and the three optimizer
     steps;
+  * the cost of the critics' exactness (ROADMAP F6): each D phase (loss
+    with R1 and its gradient) and a G microbatch's backward as the trainer
+    runs them, TF32 off in every direction, against the same work with
+    only the critics' forward pinned and their backwards on the process's
+    cuDNN TF32 (how the trainer ran them before F6 was closed);
   * a torch.profiler trace of one step: device time by kernel group (the
     field forward kernel, the backward kernels, cuDNN convolutions, the
     texture-table gather / scatter, everything else) and the device's busy
     share of the traced step. The full kernel table goes to --out.
+
+cuDNN's flags are left as torch sets them (TF32 allowed), as they are under
+apps/train.py: the trainer pins TF32 off around the critics itself
+(utils/precision.py::exact_convs).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -41,6 +51,7 @@ from fenerf_tpu_torch.core.grid_sample import (build_zexp_table,  # noqa: E402
 from fenerf_tpu_torch.nn import fields  # noqa: E402
 from fenerf_tpu_torch.train import loop  # noqa: E402
 from fenerf_tpu_torch.train.curriculum import CURRICULA  # noqa: E402
+from fenerf_tpu_torch.utils.precision import exact_convs  # noqa: E402
 
 TEXTURE = "CelebA_double_semantic_texture_embedding_256_dim_96"
 
@@ -94,7 +105,6 @@ def main() -> int:
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -147,39 +157,56 @@ def main() -> int:
     fake, pos, _ = loop._render_fakes(rp, fcfg, rcfg, zg, za,
                                       draws.fakes_img, scal.noise_std)
 
-    def d_phase():
-        d = loop._leaf_copy(state.d_img_params)
-        loss = loop._d_loss(d, meta.disc_img_config(), meta, imgs,
-                            fake[:, -3:], zg, za, pos, scal.alpha)
-        loop._grads(loss, d)
+    def flags(exact):
+        # exact: the trainer's `with` around a phase's loss and gradients;
+        # else the critics' forward alone pins TF32 off (nn/discriminators)
+        return (exact_convs(deterministic=False) if exact
+                else contextlib.nullcontext())
 
-    ph["D_img loss with R1 + gradient"] = event_ms(d_phase)
+    def d_phase(kind, exact=True):
+        seg = kind == "seg"
+        with flags(exact):
+            d = loop._leaf_copy(state.d_seg_params if seg
+                                else state.d_img_params)
+            loss = loop._d_loss(
+                d, meta.disc_seg_config() if seg else meta.disc_img_config(),
+                meta, torch.cat([labels, imgs], dim=1) if seg else imgs,
+                fake if seg else fake[:, -3:], zg, za, pos, scal.alpha)
+            loop._grads(loss, d)
+
+    before = {}
+    for kind in ("img", "seg"):
+        ph[f"D_{kind} loss with R1 + gradient"] = event_ms(
+            lambda: d_phase(kind))
+        before[f"D_{kind}"] = event_ms(lambda: d_phase(kind, exact=False))
     g_rcfg = dataclasses.replace(rcfg, backend="kernel_train")
     bs = meta.batch_size // meta.batch_split
     gz = [z[:bs] for z in draws.z_g]
 
-    def g_fwd():
-        p = loop._leaf_copy(rp)
-        return p, loop._g_loss(p, state.d_img_params, state.d_seg_params,
-                               fcfg, g_rcfg, meta, gz[0], gz[1], scal, 1,
-                               draws.g_renders[0])[0]
+    def g_fwd(exact=True):
+        with flags(exact):
+            p = loop._leaf_copy(rp)
+            return p, loop._g_loss(p, state.d_img_params, state.d_seg_params,
+                                   fcfg, g_rcfg, meta, gz[0], gz[1], scal,
+                                   1, draws.g_renders[0])[0]
 
     ph["G microbatch forward (render + critics)"] = event_ms(
         lambda: g_fwd())
     holder = []
 
-    def g_bwd():
+    def g_bwd(exact):
         p, loss = holder.pop()
-        loop._grads(loss, p)
+        with flags(exact):
+            loop._grads(loss, p)
 
-    def g_bwd_timed(iters=3):
+    def g_bwd_timed(iters=3, exact=True):
         total = 0.0
         for i in range(iters + 1):
-            holder.append(g_fwd())
+            holder.append(g_fwd(exact))
             torch.cuda.synchronize()
             s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             s.record()
-            g_bwd()
+            g_bwd(exact)
             e.record()
             torch.cuda.synchronize()
             if i:
@@ -187,6 +214,7 @@ def main() -> int:
         return total / iters
 
     ph["G microbatch backward"] = g_bwd_timed()
+    before["G backward"] = g_bwd_timed(exact=False)
     dtable = torch.zeros_like(table, dtype=torch.float32)
     ph["table fold (zexp_table_adjoint)"] = event_ms(
         lambda: zexp_table_adjoint(dtable, tuple(
@@ -196,6 +224,17 @@ def main() -> int:
     print("a step runs: table build once, 2 D fake phases, D_img and D_seg "
           "losses, 4 G microbatches forward + backward, one fold, three "
           "optimizer steps and two EMA updates")
+    cost = {"D_img": ph["D_img loss with R1 + gradient"] - before["D_img"],
+            "D_seg": ph["D_seg loss with R1 + gradient"] - before["D_seg"],
+            "G backward": ph["G microbatch backward"] - before["G backward"]}
+    step_cost = (cost["D_img"] + cost["D_seg"]
+                 + meta.batch_split * cost["G backward"])
+    print("F6, the critics' backwards on the process's cuDNN TF32 (before) "
+          "-> TF32 off in every direction (the trainer): " + ", ".join(
+              f"{k} {before[k]:.2f} -> {before[k] + v:.2f} ms"
+              for k, v in cost.items())
+          + f"; per step (D_img + D_seg + {meta.batch_split} G backwards) "
+            f"{step_cost:+.2f} ms")
 
     # ---- one traced step ------------------------------------------------
     from torch.profiler import ProfilerActivity, profile

@@ -36,7 +36,8 @@ from fenerf_tpu_torch.train import curriculum as tcur
 from fenerf_tpu_torch.train import loop as tloop
 from fenerf_tpu_torch.utils import checkpoint as tckpt
 
-from test_torch_train_cli import perturbed
+# tmp_path: the fixture that empties each test's directory when it ends
+from test_torch_train_cli import perturbed, tmp_path  # noqa: F401
 from test_torch_train_step import (_jax_moments, assert_grads_match,
                                    jax_step_draws)
 

@@ -100,11 +100,21 @@ def test_lambda_percept_without_weights_fails(setup, tmp_path, monkeypatch):
 
 
 def test_targets_must_be_png(setup, tmp_path):
+    """Targets are JPEG or PNG, read as the JAX package's PIL path reads
+    them; another format raises."""
+    from fenerf_tpu.apps.invert import load_targets as jload
+    from fenerf_tpu_torch.apps.invert import load_targets
+
+    ckpt, img_p, seg_p = setup
     jpg = str(tmp_path / "gt.jpg")
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(jpg)
-    ckpt, _, seg_p = setup
+    Image.open(img_p).convert("RGB").save(jpg, quality=95)
+    for a, b in zip(load_targets(jpg, seg_p, 16, False),
+                    jload(jpg, seg_p, 16, False)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    bmp = str(tmp_path / "gt.bmp")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(bmp)
     with pytest.raises(ValueError, match="not a PNG"):
-        main(["x", "--ckpt", ckpt, "--image_path", jpg, "--seg_path", seg_p,
+        main(["x", "--ckpt", ckpt, "--image_path", bmp, "--seg_path", seg_p,
               "--save_dir", str(tmp_path), "--device", "cpu"])
 
 

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (fenerf_tpu_torch/ops/csrc/film_mlp.cu,
 film_mlp_bwd.cu, ray_finalize.cu, zexp_fold.cu, mxu_chain.cu, mxu_wide.cu,
 dma_gather.cu) against their plain torch versions on the card, and their
-wrappers' input checks. Skips without an NVIDIA GPU.
+wrappers' input checks; BiSeNet and the neural renderer (cuDNN, TF32 off)
+on the card against the CPU, and the HD sheet's field on the kernel
+against its torch route. Skips without an NVIDIA GPU.
 
 Imports no JAX, so it runs on a machine without it:
   python -m pytest --noconftest -q tests/test_torch_kernel_cuda.py
@@ -778,3 +780,83 @@ def test_probe_wrappers_reject_bad_input(device):
     with pytest.raises(ValueError, match="ring"):
         dg.ring_dma_gather(table, torch.zeros(4, dtype=torch.int32,
                                               device=device), ring=128)
+
+
+# ---------------------------------------------------------------------------
+# the editing workflow's mask half: BiSeNet and the HD heads (cuDNN, TF32
+# off) on the card against the CPU; the HD sheet's field on the kernel
+# ---------------------------------------------------------------------------
+
+# f32 convolutions with TF32 off on both sides, in another order; relative
+# to each image's largest value
+CONV_TOL = 1e-4
+
+
+def test_bisenet_card_matches_cpu(device):
+    from fenerf_tpu_torch.nn import bisenet as bn
+
+    sd = bn.stand_in_state_dict(0)
+    x = torch.randn(2, 3, 128, 128, generator=torch.Generator().manual_seed(1))
+    ref = bn.bisenet_apply(bn.bisenet_from_torch(sd), x)
+    out = bn.bisenet_apply(bn.bisenet_from_torch(sd, device), x.to(device))
+    scale = ref.abs().amax(dim=(1, 2, 3), keepdim=True)
+    err = ((out.cpu() - ref).abs() / scale).max().item()
+    assert err <= CONV_TOL, err
+
+
+def test_neural_renderer_card_matches_cpu(device):
+    from fenerf_tpu_torch.compat.jax_bridge import tree_map
+    from fenerf_tpu_torch.nn import neural_renderer as nr
+
+    g = torch.Generator().manual_seed(2)
+    for kw in (dict(n_feat=64, input_dim=64, img_size=256, input_size=64),
+               dict(n_feat=64, input_dim=64, img_size=128, input_size=32,
+                    out_dim=19, final_actvn=False, upsample_feat="bilinear",
+                    use_norm=True)):
+        cfg = nr.NeuralRendererConfig(**kw)
+        params = nr.init_neural_renderer(g, cfg)
+        x = torch.rand(1, 64, cfg.input_size, cfg.input_size, generator=g)
+        ref = nr.apply_neural_renderer(params, cfg, x)
+        out = nr.apply_neural_renderer(
+            tree_map(lambda t: t.to(device), params), cfg, x.to(device))
+        err = ((out.cpu() - ref).abs().max() / ref.abs().max()).item()
+        assert err <= CONV_TOL, (kw, err)
+
+
+def test_hd_sheet_field_on_the_kernel(device):
+    """One HD view's features (SPATIALSIRENSEMANTICHD at full width, 32^2,
+    24 + 24 steps): the field kernel against the field's torch route at
+    bf16, and the heads' output."""
+    import math
+
+    from fenerf_tpu_torch.models import generator as gen
+    from fenerf_tpu_torch.nn import neural_renderer as nr
+
+    cfg = fields.get_config("SPATIALSIRENSEMANTICHD")
+    g = torch.Generator(device=device).manual_seed(0)
+    params = fields.init_field(g, cfg, device=device)
+    params["sigma_head"]["b"] = params["sigma_head"]["b"] + 5.0
+    heads = []
+    for out_dim, act in ((3, True), (19, False)):
+        ncfg = nr.NeuralRendererConfig(n_feat=64, input_dim=64,
+                                       out_dim=out_dim, final_actvn=act,
+                                       img_size=128, input_size=32)
+        heads += [tree_map(lambda t: t.to(device), nr.init_neural_renderer(
+            torch.Generator().manual_seed(out_dim), ncfg)), ncfg]
+    zg = torch.randn(1, cfg.z_geo_dim, generator=g, device=device)
+    fg, fa = fields.field_film(params, cfg, zg, zg)
+    pix = {}
+    for backend in ("kernel", "torch"):
+        rcfg = gen.RenderConfig(img_size=32, num_steps=48, fill_mode=None,
+                                compute_dtype="bfloat16", backend=backend)
+        launches = ops.film_mlp.launches
+        with torch.no_grad():
+            pix[backend] = gen.render_hd(
+                params, cfg, rcfg, fg, fa, 1, *heads,
+                camera=(math.pi / 2, math.pi / 2, 12.0),
+                generator=torch.Generator(device=device).manual_seed(0))[
+                    "pixels"]
+        assert (ops.film_mlp.launches > launches) == (backend == "kernel")
+    assert pix["kernel"].shape == (1, 22, 128, 128)
+    err = (pix["kernel"] - pix["torch"]).abs().max().item()
+    assert err <= TOL, err

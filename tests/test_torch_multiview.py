@@ -1,8 +1,8 @@
 """Port parity for the multiview CLI: the JAX package's
 render_multiview and the port's on one checkpoint and one --z_file, in
 --deterministic mode (no jitter, no hierarchy, f32), compared as decoded
-PNGs; the default route (hierarchical, bf16) on the CPU; and the options
-that wait for later slices. Tiny sizes (TINY_KW, 16^2, 4 x 2 steps)."""
+PNGs; the default route (hierarchical, bf16) on the CPU; and the option
+that waits for a later slice. Tiny sizes (TINY_KW, 16^2, 4 x 2 steps)."""
 import numpy as np
 import pytest
 from PIL import Image
@@ -86,9 +86,18 @@ def test_default_route_runs(dense_ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--hd", "--shard_rays"])
-def test_unported_options_raise(flag):
+def test_unported_options_raise(flag, dense_ckpt, tmp_path):
+    """--shard_rays waits for a later slice (ROADMAP A6); --hd is ported
+    (tests/test_torch_hd.py) and refuses a checkpoint without the neural
+    renderers' heads, as the JAX CLI does."""
     from fenerf_tpu_torch.apps.render_multiview import main
 
+    if flag == "--hd":
+        ckpt, *_ = dense_ckpt
+        with pytest.raises(ValueError, match="no neural-renderer heads"):
+            main(["--ckpt", ckpt, flag, "--device", "cpu", "--output_dir",
+                  str(tmp_path)])
+        return
     with pytest.raises(NotImplementedError, match="A6"):
         main(["--ckpt", "unused.npz", flag])
 

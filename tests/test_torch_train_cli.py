@@ -11,6 +11,7 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +43,17 @@ from test_torch_train_step import _jax_moments, tiny_texture_meta
 torch.set_num_threads(2)
 
 TEXTURE = "CelebA_double_semantic_texture_embedding_256_dim_96"
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's directory, emptied when the test ends: a train state
+    holds the critics at full width (~300 MB per train_state.npz, three
+    runs in some tests), and pytest keeps the directories of its last three
+    sessions, so the suite's runs would fill the disk and a later save
+    fail with ENOSPC."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def perturbed(state):
