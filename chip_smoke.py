@@ -204,9 +204,42 @@ Phases (any failure exits non-zero):
      each time's share of the bound; for the chains, the same torch.matmul
      calls in a row, printed as context).
 
+ 11. ddp, data-parallel training on the one card: (i) two gloo ranks
+     spawned from this script, both on cuda:0 (NCCL refuses two ranks on
+     one device), the flagship's stage 0 at full width (24 per rank, 48
+     global, split 4, topk 0.6 so that each chunk's kept set spans the
+     ranks, ray kernels on) for 2 steps through
+     train/sharding.py::train_step_sharded, against the same 2 steps in
+     this process on the 48-image batch (the first step's losses 1e-3
+     absolute and the G parameters 5e-4: the JAX package's mesh bounds;
+     the second step's losses 2e-3 relative), printed beside the witness,
+     the same process full-batch on the same draws (only the reduction
+     order differs), the ranks' states bit-identical
+     (check_replica_consistency), each rank's launches equal to its
+     renders and steps; ms per step per rank, the all-reduce's ms, bytes
+     and calls per step (gloo on CUDA tensors), peak memory per rank;
+     (ii) an NCCL all-reduce at world size 1 and the trainer's CLI over
+     NCCL at world size 1 (--coordinator, --num_processes 1, --process_id
+     0) on 24 pairs of the fixture tree, 3 steps with a checkpoint;
+     (iii) apps.supervise around that CLI (its own processes): the run
+     resumes from (ii)'s checkpoint, the trainer's process group is
+     killed once metrics.jsonl shows its first step (3), the relaunch
+     resumes from the run's own checkpoint and ends at step 4; the events
+     launched, exit, relaunching, launched, done. No speed across GPUs is
+     shown;
+ 12. sharded: render_image_sharded and render_grid_sharded at
+     render_multiview's 256^2 (48 + 48 steps, ray_chunk 4096) in 4 strips
+     of cuda:0 against the whole render, bit for bit on both ray routes;
+     eval_volume_sharded and eval_volume_grid_sharded at 256^3 in 4 slabs
+     against the whole lattice, bit for bit; render_multiview,
+     render_video (3 frames) and extract_shapes (128^3) with --shard_rays
+     over 4 strips of cuda:0 (on this one-GPU machine the CLIs' own
+     --shard_rays takes 1) against their plain runs, the film family
+     through all three and the grid family through the last two.
+
 Prints each phase's seconds, the card line, a JSON line of per-kernel
-results (launches per main path, launches_train_cli, launches_grid_train
-and launches_edit among them) and, last,
+results (launches per main path, launches_train_cli, launches_grid_train,
+launches_edit, launches_ddp and launches_sharded among them) and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -3510,6 +3543,574 @@ def _grid_train_cli(dev, cfg, results) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# 11. ddp: the data-parallel step, the multi-process CLI and the supervisor
+# ---------------------------------------------------------------------------
+
+DDP_STEPS = 2
+DDP_TOPK = 0.6      # forced, so that each chunk's kept set spans the ranks
+# the two ranks against one process on the global batch: only the order of
+# the reductions differs. The JAX package's test_mesh_size_invariance bounds:
+# the first step's losses 1e-3 (absolute) and the G parameters after both
+# steps 5e-4. The second step's losses are computed on parameters that
+# already differ: Adam's first update (beta1 0) is lr * sign(g), so a
+# gradient element within a few ulps of 0 moves by +-lr on one side and -+lr
+# on the other; over two steps at G's lr 6e-5 that reaches at most
+# (2 + 2 sqrt(1.9)) lr = 2.86e-4 per parameter. Beside them the witness, one process against itself with
+# only the reduction order changed (full_batch on the same draws), shows how
+# far that alone carries the second step; its losses reach hundreds at full
+# width, so the second step is held relative to the loss (|loss| >= 1)
+DDP_LOSS_TOL = 1e-3
+DDP_LOSS2_TOL = 2e-3
+DDP_PARAM_TOL = 5e-4
+DDP_CLI_PAIRS = 24          # one stage-0 batch
+DDP_SUPERVISED_STEPS = 4    # the supervised run resumes at 3 and ends at 4
+DDP_KILL_AT = 3             # killed once its metrics show this step
+
+
+def _ddp_inputs(meta, dev):
+    """The global batch of the ddp phase's steps (seeded)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    return _synthetic_reals(gen, 2 * meta.batch_size, meta.img_size, dev)
+
+
+def _ddp_scalars(cur, meta, step, dev):
+    from fenerf_tpu_torch.train import loop
+
+    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    return loop.StepScalars(alpha=as_t(cur.alpha(step)),
+                            noise_std=as_t(meta.nerf_noise(step)),
+                            topk_frac=as_t(DDP_TOPK))
+
+
+def _ddp_step_generator(dev, step):
+    return torch.Generator(device=dev).manual_seed(1000 + step)
+
+
+def _full_batch_draws(draws):
+    """A split step's draws as one render per phase (each RenderDraws
+    joined on its batch axis): the same random numbers for meta.full_batch,
+    which computes the same split objective in another reduction order."""
+    from fenerf_tpu_torch.models.generator import RayNoise, RenderDraws
+
+    cat = lambda ts: None if ts[0] is None else torch.cat(ts)
+
+    def join(rs):
+        if rs is None:
+            return None
+        if any(r.ray_perm is not None or r.cam_coin is not None for r in rs):
+            raise AssertionError("[ddp] the witness joins no grad_rays / "
+                                 "hybrid draws")
+        return [RenderDraws(cat([r.jitter for r in rs]),
+                            cat([r.cam_h for r in rs]),
+                            cat([r.cam_v for r in rs]),
+                            RayNoise(*(cat([r.noise[i] for r in rs])
+                                       for i in range(3))))]
+
+    if draws.aug_d is not None:
+        raise AssertionError("[ddp] the witness joins no DiffAugment draws")
+    return draws._replace(fakes_img=join(draws.fakes_img),
+                          fakes_seg=join(draws.fakes_seg),
+                          g_renders=join(draws.g_renders))
+
+
+def _ddp_rank(rank: int, port: int, out: str) -> None:
+    """One of two gloo ranks on cuda:0 (a spawned process): the flagship's
+    stage 0 (24 per rank, 48 global, split 4) for DDP_STEPS steps with the
+    ray kernels on, through train/sharding.py::train_step_sharded; writes
+    its losses, times, all-reduce traffic, peak memory, launches, the
+    replica check and (rank 0) the updated G to `out`."""
+    from fenerf_tpu_torch.compat.jax_bridge import tree_leaves
+    from fenerf_tpu_torch.train import loop, sharding
+    from fenerf_tpu_torch.train.curriculum import CURRICULA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["FENERF_RAY_KERNELS"] = "auto"
+    dev = torch.device("cuda", 0)
+    base = sharding.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                                     backend="gloo", device=dev)
+    traffic = {"ms": 0.0, "bytes": 0, "calls": 0}
+
+    class Timed(sharding.Group):
+        """The group's all-reduce timed (synchronized) and its bytes
+        counted."""
+
+        def all_reduce(self, t, op=torch.distributed.ReduceOp.SUM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().all_reduce(t, op)
+            torch.cuda.synchronize()
+            traffic["ms"] += (time.perf_counter() - t0) * 1e3
+            traffic["bytes"] += t.numel() * t.element_size()
+            traffic["calls"] += 1
+            return t
+
+    group = Timed(base.rank, base.world, base.device, base.host)
+    cur = CURRICULA[TEXTURE]
+    meta = cur.at_step(0)
+    state = loop.init_train_state(meta, seed=0, device=dev)
+    sharding.replicate(group, state)
+    imgs, labels = sharding.shard_batch(group, *_ddp_inputs(meta, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"steps": []}
+    zero_counts()
+    for step in range(DDP_STEPS):
+        for k in traffic:
+            traffic[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = sharding.train_step_sharded(
+            state, imgs, labels, _ddp_scalars(cur, meta, step, dev), meta,
+            group, generator=_ddp_step_generator(dev, step))
+        torch.cuda.synchronize()
+        res["steps"].append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "losses": {k: float(v) for k, v in m.items()},
+            "allreduce_ms": traffic["ms"],
+            "allreduce_bytes": traffic["bytes"],
+            "allreduce_calls": traffic["calls"]})
+    res["counts"], res["plain"] = read_counts()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    try:
+        sharding.check_replica_consistency(group, state)
+        res["replicas"] = "bit-identical"
+    except AssertionError as e:
+        res["replicas"] = str(e)
+    if rank == 0:
+        res["g"] = torch.cat([t.detach().reshape(-1).float().cpu()
+                              for t in tree_leaves(state.g_params)])
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    sharding.host_barrier(group, "ddp_done")
+    sharding.shutdown()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ddp_two_ranks(dev, tmp) -> dict:
+    """(i): two gloo ranks on cuda:0 against one process on the global
+    batch."""
+    import multiprocessing
+
+    from fenerf_tpu_torch.compat.jax_bridge import tree_leaves
+    from fenerf_tpu_torch.train import loop
+    from fenerf_tpu_torch.train.curriculum import CURRICULA
+
+    out = os.path.join(tmp, "ddp")
+    os.makedirs(out)
+    port = _free_port()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_ddp_rank, args=(r, port, out))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"[ddp] the ranks exited with {codes}")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    # the same steps in this process on the 48-image global batch, split 4
+    # (the reference), and again in one full-batch pass on the same draws
+    # (the witness: only the order of the reductions differs)
+    import dataclasses
+
+    cur = CURRICULA[TEXTURE]
+    meta = cur.at_step(0)
+    imgs, labels = _ddp_inputs(meta, dev)
+    runs = {}
+    with ray_kernels("auto"):
+        for name, full in (("one", False), ("witness", True)):
+            state = loop.init_train_state(meta, seed=0, device=dev)
+            m_run = dataclasses.replace(meta, full_batch=full)
+            losses = []
+            for step in range(DDP_STEPS):
+                scal = _ddp_scalars(cur, meta, step, dev)
+                draws = loop.make_step_draws(
+                    _ddp_step_generator(dev, step), meta, imgs.shape[0],
+                    scal.noise_std, dev)
+                state, m = loop.train_step(
+                    state, imgs, labels, scal, m_run,
+                    draws=_full_batch_draws(draws) if full else draws)
+                losses.append({k: float(v) for k, v in m.items()})
+            runs[name] = (losses, torch.cat([
+                t.detach().reshape(-1).float().cpu()
+                for t in tree_leaves(state.g_params)]))
+            del state
+    one, g = runs["one"]
+
+    def gaps(others):
+        """Per step, the largest difference of a loss from the reference's
+        over its scale (1 at the first step: absolute; max(1, |loss|)
+        after it: relative), and the loss it is of."""
+        return [max((abs(o[s][k] - one[s][k])
+                     / (1.0 if s == 0 else max(1.0, abs(one[s][k]))), k)
+                    for o in others for k in one[s])
+                for s in range(DDP_STEPS)]
+
+    loss_gaps = gaps([[st["losses"] for st in r["steps"]] for r in ranks])
+    witness_gaps = gaps([runs["witness"][0]])
+    loss_err = [x for x, _ in loss_gaps]
+    witness_err = [x for x, _ in witness_gaps]
+    param_err = float((ranks[0]["g"] - g).abs().max())
+    witness_param = float((runs["witness"][1] - g).abs().max())
+    renders = 3 * meta.batch_split
+    want = {"film_mlp": 2 * renders, "film_mlp_bwd": 2 * meta.batch_split,
+            "ray_resample": renders, "ray_finalize": renders,
+            "fold_zexp": 1}
+    want = {k: want.get(k, 0) * DDP_STEPS for k in ranks[0]["counts"]}
+    for r, res in enumerate(ranks):
+        for s, st in enumerate(res["steps"]):
+            log(f"[ddp] rank {r} step {s}: {st['ms']:.1f} ms, all-reduce "
+                f"{st['allreduce_ms']:.1f} ms for {st['allreduce_bytes']} "
+                f"bytes in {st['allreduce_calls']} calls (gloo, CUDA "
+                f"tensors); losses " + " ".join(
+                    f"{k} {v:.5f}" for k, v in st["losses"].items()
+                    if k in ("d_img_loss", "d_seg_loss", "g_loss")))
+        log(f"[ddp] rank {r}: peak device memory {res['peak_gib']:.2f} GiB, "
+            f"launches {res['counts']}, plain-version calls {res['plain']}, "
+            f"replicas {res['replicas']}")
+    log(f"[ddp] 2 gloo ranks on one {card()} (24 per rank, 48 global, "
+        f"split 4, topk {DDP_TOPK}, ray kernels on) against one process on "
+        f"the 48-image batch: max loss diff per step (absolute at the "
+        f"first, relative after) {[f'{x:.3g} ({k})' for x, k in loss_gaps]}"
+        f" (tol {DDP_LOSS_TOL}, {DDP_LOSS2_TOL}), max |G param diff| "
+        f"{param_err:.3g} (tol {DDP_PARAM_TOL}); the witness, one process "
+        f"full-batch on the same draws: "
+        f"{[f'{x:.3g} ({k})' for x, k in witness_gaps]}, "
+        f"{witness_param:.3g}, its losses "
+        f"{[{k: round(v, 5) for k, v in m.items()} for m in runs['witness'][0]]}"
+        f"; one process's losses "
+        f"{[{k: round(v, 5) for k, v in m.items()} for m in one]}; "
+        f"{wall:.1f} s for both ranks with their start")
+    if any(r["replicas"] != "bit-identical" for r in ranks):
+        raise AssertionError(f"[ddp] replicas: {[r['replicas'] for r in ranks]}")
+    if not (loss_err[0] <= DDP_LOSS_TOL and max(loss_err) <= DDP_LOSS2_TOL
+            and param_err <= DDP_PARAM_TOL):
+        raise AssertionError("[ddp] the ranks disagree with one process")
+    for r, res in enumerate(ranks):
+        if res["counts"] != want or res["plain"]:
+            raise AssertionError(f"[ddp] rank {r} launches {res['counts']}, "
+                                 f"plain {res['plain']}; expected {want}")
+    return {"launches": {k: sum(r["counts"][k] for r in ranks)
+                         for k in want},
+            # the last step's: the first builds each process's state
+            "ms_per_step": [r["steps"][-1]["ms"] for r in ranks],
+            "loss_err": loss_err, "param_err": param_err,
+            "witness_err": witness_err, "witness_param": witness_param}
+
+
+def _nccl_cli(dev, tmp) -> dict:
+    """(ii): the trainer's CLI at world size 1 over NCCL (--coordinator) in
+    this process, 3 steps with a checkpoint (the supervised run of (iii)
+    resumes from it); an NCCL all-reduce at world size 1 beside it."""
+    from fenerf_tpu_torch.apps import train as train_cli
+    from fenerf_tpu_torch.data import synthetic
+    from fenerf_tpu_torch.train import sharding
+
+    group = sharding.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    backend = torch.distributed.get_backend()
+    x = torch.arange(4.0, device=dev)
+    torch.distributed.all_reduce(x)
+    sharding.shutdown()
+    if backend != "nccl" or group.device.type != "cuda" or \
+            x.tolist() != [0.0, 1.0, 2.0, 3.0]:
+        raise AssertionError(f"[ddp cli] {backend} at world size 1 on "
+                             f"{group.device}: {x.tolist()}")
+    fixtures = [str(synthetic.FIXTURES / n)
+                for n in sorted(synthetic.fixture_digests())]
+    root = synthetic.write_celebamask_tree(os.path.join(tmp, "ddp_tree"),
+                                           fixtures, count=DDP_CLI_PAIRS)
+    out = os.path.join(tmp, "ddp_cli")
+    common = TRAIN_CLI + ["--data_root", root, "--sample_interval", "0",
+                          "--eval_freq", "0"]
+    tee = _Tee(sys.stdout)
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        state = train_cli.main(
+            common + ["--output_dir", out, "--coordinator",
+                      f"127.0.0.1:{_free_port()}", "--num_processes", "1",
+                      "--process_id", "0", "--total_steps", "3",
+                      "--model_save_interval", "3"])
+    counts, plain = read_counts()
+    text = "".join(tee.lines)
+    log(f"[ddp cli] 3 steps over NCCL at world size 1: "
+        f"{time.perf_counter() - t0:.1f} s, launches {counts}, "
+        f"plain-version calls {plain}")
+    if "(nccl)" not in text or plain or counts["film_mlp"] != 72 \
+            or int(state.step) != 3:
+        raise AssertionError(f"[ddp cli] {text[-2000:]}")
+    return {"launches": counts, "root": root, "out": out}
+
+
+def _supervised(cli: dict, tmp) -> None:
+    """(iii): apps/supervise.py around the same CLI (its own processes):
+    the run resumes from (ii)'s checkpoint, this phase kills the trainer's
+    process group once metrics.jsonl shows step DDP_KILL_AT, and the
+    relaunch resumes from the run's own checkpoint and finishes."""
+    import shutil
+    import subprocess
+
+    # the trainer processes share the card with this one, whose allocator
+    # keeps the earlier phases' blocks (the witness's full-batch pass among
+    # them) cached otherwise
+    torch.cuda.empty_cache()
+    run = os.path.join(tmp, "ddp_supervised")
+    os.makedirs(run)
+    shutil.copy(os.path.join(cli["out"], "train_state.npz"), run)
+    log_base = os.path.join(run, "supervise.log")
+    metrics = os.path.join(run, "metrics.jsonl")
+    trainer = [sys.executable, "-m", "fenerf_tpu_torch.apps.train",
+               *TRAIN_CLI, "--data_root", cli["root"], "--output_dir", run,
+               "--load_dir", run, "--total_steps",
+               str(DDP_SUPERVISED_STEPS), "--model_save_interval", "1",
+               "--sample_interval", "0", "--eval_freq", "0",
+               "--coordinator", f"127.0.0.1:{_free_port()}",
+               "--num_processes", "1", "--process_id", "0"]
+    t0 = time.perf_counter()
+    sup = subprocess.Popen(
+        [sys.executable, "-m", "fenerf_tpu_torch.apps.supervise", "--log",
+         log_base, "--watch", metrics, "--stall_s", "300",
+         "--startup_grace_s", "300", "--poll_s", "0.5", "--max_restarts",
+         "2", "--", *trainer], cwd=str(Path(__file__).resolve().parent),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    events = log_base + ".events.jsonl"
+    killed = None
+    try:
+        deadline = time.time() + 300
+        while killed is None and time.time() < deadline:
+            steps = []
+            if os.path.exists(metrics):
+                with open(metrics) as f:
+                    steps = [json.loads(x)["step"] for x in f if x.strip()]
+            if DDP_KILL_AT in steps:
+                with open(events) as f:
+                    pid = [json.loads(x) for x in f][0]["pid"]
+                os.killpg(pid, signal.SIGKILL)
+                killed = time.perf_counter() - t0
+            elif sup.poll() is not None:
+                break
+            time.sleep(0.2)
+        out, _ = sup.communicate(timeout=300)
+    finally:
+        if sup.poll() is None:
+            sup.kill()
+            sup.wait()
+    with open(events) as f:
+        names = [json.loads(x)["event"] for x in f]
+    with open(log_base + ".1") as f:
+        second = f.read()
+    with open(metrics) as f:
+        steps = [json.loads(x)["step"] for x in f]
+    with np.load(os.path.join(run, "train_state.npz")) as st:
+        n = json.loads(str(st["__manifest__"]))["n"]
+        final = int(st[f"leaf_{n - 1}"])
+    log(f"[ddp supervise] killed the trainer's process group at "
+        f"{killed if killed is None else round(killed, 1)} s (metrics at "
+        f"step {DDP_KILL_AT}); events {names}; the relaunch: "
+        f"{[ln for ln in second.splitlines() if 'resumed' in ln]}; steps "
+        f"logged {steps}; final checkpoint at step {final}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (killed is None or sup.returncode != 0
+            or names != ["launched", "exit", "relaunching", "launched",
+                         "done"]
+            or "resumed from" not in second or final != DDP_SUPERVISED_STEPS
+            or steps[0] != 3 or steps[-1] != DDP_SUPERVISED_STEPS - 1):
+        tails = "".join(
+            f"\n--- {log_base}.{i}:\n" + Path(f"{log_base}.{i}").read_text()
+            [-2000:] for i in range(3) if os.path.exists(f"{log_base}.{i}"))
+        raise AssertionError(f"[ddp supervise] failed:\n{out[-3000:]}"
+                             f"{tails}")
+
+
+def phase_ddp(dev) -> dict:
+    """Data-parallel training on the one card: (i) two gloo ranks on
+    cuda:0 against one process; (ii) the CLI over NCCL at world size 1;
+    (iii) the supervisor around it. NCCL refuses two ranks on one device,
+    so (i) shows the step's collectives over gloo and (ii) NCCL at world
+    size 1 only; no speed across GPUs is shown here."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _ddp_two_ranks(dev, tmp)
+        cli = _nccl_cli(dev, tmp)
+        _supervised(cli, tmp)
+    return {"launches": ranks["launches"], "launches_cli": cli["launches"],
+            "ms_per_step": ranks["ms_per_step"]}
+
+
+# ---------------------------------------------------------------------------
+# 12. sharded: the ray-parallel renders and the sharded lattices
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+SHARD_SIZE = 256                   # render_multiview's default
+SHARD_CAMERA = (math.pi * 0.5, math.pi * 0.5 + 0.3, 12.0)
+SHARD_SHAPES = ["--voxel_resolution", "128", "--chunk", "65536"]
+SHARD_VIDEO = ["--num_frames", "3"]
+
+
+def _shard_renders(ckpt, grid_ckpt, dev, sharded: bool) -> dict:
+    """render_multiview's 256^2 view of each family on both ray routes,
+    whole or in SHARDS strips on `dev`."""
+    from fenerf_tpu_torch.apps.common import best_backend, load_generator
+    from fenerf_tpu_torch.models import generator as gen
+    from fenerf_tpu_torch.nn import fields
+    from fenerf_tpu_torch.ops import film_mlp
+    from fenerf_tpu_torch.utils.precision import exact_matmuls
+
+    out = {}
+    for family, path, fill in (("film", ckpt, "seg_padding_background"),
+                               ("grid", grid_ckpt, "eval_white_back")):
+        _, params, _, fcfg, _ = load_generator(path, device=dev)
+        rcfg = gen.RenderConfig(
+            img_size=SHARD_SIZE, num_steps=48, fill_mode=fill,
+            ray_chunk=4096, compute_dtype="bfloat16",
+            backend=best_backend(fcfg, dev))
+        g = torch.Generator(device=dev).manual_seed(3)
+        zg = torch.randn((1, fcfg.z_geo_dim), generator=g, device=dev)
+        draw = lambda: torch.Generator(device=dev).manual_seed(0)
+        with torch.no_grad():
+            if family == "film":
+                za = torch.randn((1, fcfg.z_app_dim), generator=g, device=dev)
+                params = fields.with_grid_table(params, fcfg, torch.bfloat16)
+                if rcfg.backend == "kernel":
+                    params = film_mlp.with_pack(params, fcfg)
+                fg, fa = fields.field_film(params, fcfg, zg, za)
+            for ray in ("never", "auto"):
+                with ray_kernels(ray):
+                    if not sharded and family == "film":
+                        pix = gen.render(params, fcfg, rcfg, fg, fa, 1,
+                                         camera=SHARD_CAMERA,
+                                         generator=draw())["pixels"]
+                    elif not sharded:
+                        pix = gen.render_grid_from_z(
+                            params, fcfg, rcfg, zg, camera=SHARD_CAMERA,
+                            generator=draw())["pixels"]
+                    elif family == "film":
+                        pix = gen.render_image_sharded(
+                            params, fcfg, rcfg, fg, fa, [dev] * SHARDS,
+                            SHARD_CAMERA, generator=draw())
+                    else:
+                        pix = gen.render_grid_sharded(
+                            params, fcfg, rcfg, zg, [dev] * SHARDS,
+                            SHARD_CAMERA, generator=draw())
+                out[(family, ray)] = pix
+            # the lattice at 256^3 (extract_shapes' default), whole or in
+            # slabs of whole chunks
+            pts = gen.voxel_points(SHAPES_RES, SHAPES_CUBE, device=dev)
+            with exact_matmuls():
+                if family == "film":
+                    one = lambda f: tuple(t[:1] for t in f)
+                    out[(family, "volume")] = (
+                        gen.eval_volume_sharded(params, fcfg, one(fg),
+                                                one(fa), pts,
+                                                [dev] * SHARDS)
+                        if sharded else gen.eval_volume(
+                            params, fcfg, one(fg), one(fa), pts))
+                else:
+                    out[(family, "volume")] = (
+                        gen.eval_volume_grid_sharded(params, fcfg, zg, pts,
+                                                     [dev] * SHARDS)
+                        if sharded else gen.eval_volume_grid(
+                            params, fcfg, zg, pts))
+    torch.cuda.synchronize()
+    return out
+
+
+def _shard_clis(ckpt, grid_ckpt, tmp, sharded: bool) -> dict:
+    """render_multiview, render_video and extract_shapes through their
+    mains, with --shard_rays over SHARDS strips of this card
+    (apps/common.py::visible_devices widened) or without."""
+    from fenerf_tpu_torch.apps import common, extract_shapes
+    from fenerf_tpu_torch.apps import render_multiview, render_video
+
+    tag = "sharded" if sharded else "whole"
+    flag = ["--shard_rays"] if sharded else []
+    visible = common.visible_devices
+    if sharded:
+        common.visible_devices = lambda d: [torch.device(d)] * SHARDS
+    out = {}
+    try:
+        with ray_kernels("auto"):
+            for family, path in (("film", ckpt), ("grid", grid_ckpt)):
+                d = os.path.join(tmp, f"shard_{family}_{tag}")
+                if family == "film":
+                    # the grid family's 256^2 sheet takes ~8.5 s a run;
+                    # its strips are held above at that size
+                    sheets = render_multiview.main(
+                        ["--ckpt", path, "--seeds", "7", "--output_dir", d,
+                         "--device", "cuda"] + flag)
+                    out[(family, "multiview")] = sheets[0][1]
+                (video,) = render_video.main(
+                    ["--ckpt", path, "--output_dir", d, "--device", "cuda"]
+                    + SHARD_VIDEO + flag)
+                out[(family, "video")] = video.frames
+                extract_shapes.main(["--ckpt", path, "--output_dir", d,
+                                     "--device", "cuda"] + SHARD_SHAPES
+                                    + flag)
+                with open(os.path.join(d, "shape_seed0.mrc"), "rb") as f:
+                    out[(family, "mrc")] = f.read()
+    finally:
+        common.visible_devices = visible
+    return out
+
+
+def phase_sharded(ckpt, grid_ckpt, tmp, dev) -> dict:
+    """The ray-parallel renders of both families at render_multiview's
+    256^2 in SHARDS strips of this card against the whole render, bit for
+    bit on both ray routes; both lattices at 256^3 in SHARDS slabs against
+    the whole, bit for bit; the three CLIs with --shard_rays (SHARDS strips
+    of this card) against their plain runs. The card's machine has one GPU,
+    where the CLIs' --shard_rays takes one strip: the strips here repeat
+    cuda:0. Counts from zero around the sharded paths alone."""
+    t0 = time.perf_counter()
+    whole = _shard_renders(ckpt, grid_ckpt, dev, sharded=False)
+    whole_cli = _shard_clis(ckpt, grid_ckpt, tmp, sharded=False)
+    t1 = time.perf_counter()
+    # --- the main path: counts from zero ---
+    zero_counts()
+    strips = _shard_renders(ckpt, grid_ckpt, dev, sharded=True)
+    strips_cli = _shard_clis(ckpt, grid_ckpt, tmp, sharded=True)
+    counts, plain = read_counts()
+    t2 = time.perf_counter()
+    bad = []
+    for key, ref in list(whole.items()) + list(whole_cli.items()):
+        got = strips[key] if key in strips else strips_cli[key]
+        same = (got == ref if isinstance(ref, bytes)
+                else np.array_equal(np.asarray(got), np.asarray(ref))
+                if isinstance(ref, np.ndarray) else torch.equal(got, ref))
+        if not same:
+            bad.append(key)
+    log(f"[sharded] {SHARDS} strips / slabs of one {card()}: "
+        f"{len(whole) + len(whole_cli)} outputs compared bit for bit "
+        f"(renders of both families on both ray routes, both 256^3 "
+        f"lattices, the multiview sheets, videos and .mrc of the CLIs), "
+        f"{len(bad)} differ {bad}; launches on the sharded paths {counts}, "
+        f"plain-version calls {plain}; whole {t1 - t0:.1f} s, sharded "
+        f"{t2 - t1:.1f} s")
+    need = ("film_mlp", "ray_resample", "ray_finalize")
+    if bad or plain or not all(counts[k] for k in need):
+        raise AssertionError("[sharded] the strips differ from the whole, "
+                             "or a kernel of the path was not launched")
+    return {"launches": counts}
+
+
 def _children(pid: int) -> list[int]:
     """The processes whose parent is `pid`, zombies included (/proc)."""
     out = []
@@ -3585,6 +4186,8 @@ def run_phases(dev: torch.device) -> dict:
             f"{grid_apps['volume_s']:.2f} s")
         # 5g: the editing workflow's mask half
         edit = timed("edit loop", phase_edit_loop, ckpt, inv_ckpt, tmp, dev)
+        # 12: the ray-parallel renders and the sharded lattices
+        sharded = timed("sharded", phase_sharded, ckpt, grid_ckpt, tmp, dev)
     timed("render", phase_render, dev)
     bwd = timed("backward", phase_backward, dev)
     # the backward at invert's shape (phase 5c) beside phase 7's shapes
@@ -3602,6 +4205,8 @@ def run_phases(dev: torch.device) -> dict:
         f"{grid_train['ms_per_step']:.1f} ms/step, "
         f"{grid_train['imgs_per_s']:.2f} images/s, peak "
         f"{grid_train['peak_gib']:.2f} GiB")
+    # 11: data-parallel training, the multi-process CLI, the supervisor
+    ddp = timed("ddp", phase_ddp, dev)
     timed("grad", phase_grad, dev, CURRICULA[TEXTURE].at_step(0),
           (trained, TRAIN_STEPS))
     probe_launches, probe_results = timed("probe scripts",
@@ -3617,9 +4222,10 @@ def run_phases(dev: torch.device) -> dict:
         family on both ray routes, the film family on the kernels), the
         grid family's multiview sheet, the trainer's CLI (stage 0, its
         resume and the 64^2 stage) and the grid family's training (none:
-        the path has no kernel, as the JAX trainer's has none) and the
+        the path has no kernel, as the JAX trainer's has none), the
         edit loop (its face and score renders, its inversion, its HD
-        sheets)."""
+        sheets), the data-parallel step's two ranks and the CLI over NCCL
+        (ddp) and the sharded renders and CLIs (sharded)."""
         by_path = {"serve": sum(r["launches"][name] for r in serve.values()),
                    "train": (train_off["launches"][name]
                              + train_on["launches"][name]),
@@ -3634,7 +4240,10 @@ def run_phases(dev: torch.device) -> dict:
                                     train_cli["launches"].values()),
                    "grid_train": sum(r.get(name, 0) for r in
                                      grid_train["launches"].values()),
-                   "edit": edit["launches"][name]}
+                   "edit": edit["launches"][name],
+                   "ddp": (ddp["launches"].get(name, 0)
+                           + ddp["launches_cli"].get(name, 0)),
+                   "sharded": sharded["launches"][name]}
         return {"launches": sum(by_path.values()),
                 **{f"launches_{k}": v for k, v in by_path.items()}}
 

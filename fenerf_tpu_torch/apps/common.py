@@ -142,6 +142,30 @@ def best_backend(cfg: Any, device, train: bool = False) -> str:
     return film_mlp.backend_for(cfg, device, train)
 
 
+def visible_devices(device) -> list:
+    """`device` and every other visible GPU when it is a CUDA device (the
+    JAX CLIs take the whole mesh), else `device` alone."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [dev]
+    return [dev] + [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())
+                    if i != (dev.index or 0)]
+
+
+def shard_devices(device, img_size: int | None = None) -> list:
+    """--shard_rays' devices (visible_devices); with img_size, the strips
+    must divide its rows."""
+    devices = visible_devices(device)
+    if img_size is not None:
+        if img_size % len(devices):
+            raise ValueError(f"--shard_rays: image_size {img_size} is not "
+                             f"divisible by {len(devices)} devices")
+        print(f"[shard_rays] {len(devices)} device(s), "
+              f"{img_size // len(devices)} rows each", flush=True)
+    return devices
+
+
 def route_line(cfg: Any, rcfg, device) -> str:
     """The apps' route line: which route the field and the rays take (the
     grid family's field is always 'torch')."""

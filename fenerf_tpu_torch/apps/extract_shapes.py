@@ -43,29 +43,25 @@ def main(argv=None):
                         "meshes with skimage marching cubes, "
                         "extract_shapes.py:1-8); 'tet' = marching tetrahedra")
     p.add_argument("--shard_rays", action="store_true",
-                   help="not ported yet (ROADMAP A6)")
+                   help="split the lattice into slabs over every visible "
+                        "GPU (models/generator.py::eval_volume_sharded)")
     p.add_argument("--iso_level", type=float, default=10.0,
                    help="sigma iso level for the mesh")
     p.add_argument("--device", default="cuda",
                    help="torch device (raises if CUDA is requested and "
                         "absent)")
     args = p.parse_args(argv)
-    if args.shard_rays:
-        raise NotImplementedError(
-            "--shard_rays (the lattice over several GPUs) is not ported yet: "
-            "ROADMAP A6, the multi-GPU sharded renders")
 
     import numpy as np
     import torch
 
-    from fenerf_tpu_torch.apps.common import load_generator
+    from fenerf_tpu_torch.apps.common import load_generator, shard_devices
     from fenerf_tpu_torch.models import generator as gen
     from fenerf_tpu_torch.nn import fields
     from fenerf_tpu_torch.utils.mrc import write_mrc
+    from fenerf_tpu_torch.utils.precision import exact_matmuls
 
     dev = torch.device(args.device)
-    # the lattice is evaluated in f32: no TF32 in its products (ROADMAP F4)
-    torch.backends.cuda.matmul.allow_tf32 = False
     params, ema, _, fcfg, config = load_generator(args.ckpt, device=dev)
     if args.use_ema:
         params = ema
@@ -76,15 +72,22 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
     res = args.voxel_resolution
     pts = gen.voxel_points(res, args.cube_size, device=dev)
+    devices = shard_devices(dev) if args.shard_rays else None
+    if devices:
+        print(f"[shard_rays] {len(devices)} device(s)", flush=True)
     timings = []
 
     def extract(film_geo, film_app, name, z=None):
         t0 = time.perf_counter()
-        if is_grid:
-            out = gen.eval_volume_grid(params, fcfg, z, pts, chunk=args.chunk)
-        else:
-            out = gen.eval_volume(params, fcfg, film_geo, film_app, pts,
-                                  chunk=args.chunk)
+        # the lattice is evaluated in f32: no TF32 in its products
+        # (ROADMAP F4), the process's flag restored after
+        with exact_matmuls():
+            if is_grid:
+                out = gen.eval_volume_grid(params, fcfg, z, pts,
+                                           chunk=args.chunk, devices=devices)
+            else:
+                out = gen.eval_volume(params, fcfg, film_geo, film_app, pts,
+                                      chunk=args.chunk, devices=devices)
         sigma = (out[:, -1].float().cpu().numpy().reshape(res, res, res))
         t_volume = time.perf_counter() - t0
         path = os.path.join(args.output_dir, f"{name}.mrc")

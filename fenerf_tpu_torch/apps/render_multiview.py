@@ -44,7 +44,10 @@ def main(argv=None):
                    choices=["black", "white", "grey", "light_grey"])
     p.add_argument("--fill_mode", default="seg_padding_background")
     p.add_argument("--shard_rays", action="store_true",
-                   help="not ported yet (ROADMAP A6)")
+                   help="split each image's rows into strips over every "
+                        "visible GPU (models/generator.py::"
+                        "render_image_sharded); both families; image_size "
+                        "must divide by the device count")
     p.add_argument("--z_file", default=None,
                    help="npz with z_geo (S, d) [and z_app]: --seeds index "
                         "rows instead of seeding the RNG (render specific "
@@ -61,16 +64,14 @@ def main(argv=None):
                    help="torch device (raises if CUDA is requested and "
                         "absent)")
     args = p.parse_args(argv)
-    if args.shard_rays:
-        raise NotImplementedError(
-            "--shard_rays (the rays of an image over several GPUs) is not "
-            "ported yet: ROADMAP A6, the multi-GPU sharded renders")
+    if args.shard_rays and args.hd:
+        raise ValueError("--hd is a single-device path: drop --shard_rays")
 
     import torch
 
     from fenerf_tpu_torch.apps.common import (best_backend, load_generator,
                                               load_neural_renderers,
-                                              route_line)
+                                              route_line, shard_devices)
     from fenerf_tpu_torch.models import generator as gen
     from fenerf_tpu_torch.nn import fields
     from fenerf_tpu_torch.ops import film_mlp
@@ -115,6 +116,8 @@ def main(argv=None):
         compute_dtype="float32" if args.deterministic else "bfloat16",
         backend=best_backend(fcfg, dev))
     print(f"[multiview] {route_line(fcfg, rcfg, dev)}")
+    devices = (shard_devices(dev, rcfg.img_size) if args.shard_rays
+               else None)
     if not is_grid:
         # the texture table (and the kernel's operands) once, not per view
         table_dtype = (torch.bfloat16 if rcfg.backend != "torch"
@@ -148,9 +151,10 @@ def main(argv=None):
                 # the latent-grid family: no W-space truncation (its film
                 # is per point)
                 def render_view(camera):
+                    g = torch.Generator(device=dev).manual_seed(0)
                     return gen.render_grid_from_z(
                         params, fcfg, rcfg, z_geo, camera=camera,
-                        generator=torch.Generator(device=dev).manual_seed(0))
+                        generator=g, devices=devices)
             else:
                 film_geo, film_app = fields.field_film(params, fcfg, z_geo,
                                                        z_app)
@@ -167,7 +171,7 @@ def main(argv=None):
                             generator=g)
                     return gen.render(
                         params, fcfg, rcfg, film_geo, film_app, batch_size=1,
-                        camera=camera, generator=g)
+                        camera=camera, generator=g, devices=devices)
             segs, views = [], []
             for off in YAW_OFFSETS:
                 out = render_view((math.pi * 0.5, math.pi * 0.5 + off,

@@ -73,11 +73,12 @@ def render_config(args, fcfg, backend: str) -> gen.RenderConfig:
 
 
 def frame_renderer(params, fcfg, rcfg: gen.RenderConfig, psi: float,
-                   device):
+                   device, devices=None):
     """(films_for_seed, render_frame) of `fcfg`'s family:
     films_for_seed(seed) -> (film_geo, film_app), the endpoints that
     interpolate_films lerps between; render_frame(film_geo, film_app,
-    camera, draws) -> render_core's dict for one frame."""
+    camera, draws) -> render_core's dict for one frame, its rows in strips
+    over `devices` where given."""
     from fenerf_tpu_torch.nn import fields
     from fenerf_tpu_torch.ops import film_mlp
 
@@ -92,7 +93,8 @@ def frame_renderer(params, fcfg, rcfg: gen.RenderConfig, psi: float,
 
         def render_frame(film_geo, _film_app, camera, draws):
             return gen.render_grid_from_z(params, fcfg, rcfg, film_geo[0],
-                                          camera=camera, draws=draws)
+                                          camera=camera, draws=draws,
+                                          devices=devices)
 
         return films_for_seed, render_frame
 
@@ -112,7 +114,8 @@ def frame_renderer(params, fcfg, rcfg: gen.RenderConfig, psi: float,
 
     def render_frame(film_geo, film_app, camera, draws):
         return gen.render(params, fcfg, rcfg, film_geo, film_app,
-                          batch_size=1, camera=camera, draws=draws)
+                          batch_size=1, camera=camera, draws=draws,
+                          devices=devices)
 
     return films_for_seed, render_frame
 
@@ -137,7 +140,11 @@ def parse_args(argv=None):
                    choices=["black", "white", "grey", "light_grey"])
     p.add_argument("--fill_mode", default="eval_seg_padding_background")
     p.add_argument("--shard_rays", action="store_true",
-                   help="not ported yet (ROADMAP A6)")
+                   help="split each frame's rows into strips over every "
+                        "visible GPU (models/generator.py::"
+                        "render_image_sharded / render_grid_sharded); both "
+                        "families; image_size must divide by the device "
+                        "count")
     p.add_argument("--device", default="cuda",
                    help="torch device (raises if CUDA is requested and "
                         "absent)")
@@ -146,15 +153,12 @@ def parse_args(argv=None):
 
 def main(argv=None) -> list[Video]:
     args = parse_args(argv)
-    if args.shard_rays:
-        raise NotImplementedError(
-            "--shard_rays (a frame's rays over several GPUs) is not ported "
-            "yet: ROADMAP A6, the multi-GPU sharded renders")
 
     from fenerf_tpu_torch.apps.common import (best_backend,
                                               camera_trajectory,
                                               interpolate_films,
-                                              load_generator, route_line)
+                                              load_generator, route_line,
+                                              shard_devices)
     from fenerf_tpu_torch.utils.image import (depth_to_jet, mask2color,
                                               save_png, to_uint8)
     from fenerf_tpu_torch.utils.video import write_avi
@@ -167,8 +171,10 @@ def main(argv=None) -> list[Video]:
     rcfg = render_config(args, fcfg, best_backend(fcfg, dev))
     print(f"[video] {config['family']} family, "
           f"{route_line(fcfg, rcfg, dev)}")
+    devices = (shard_devices(dev, rcfg.img_size) if args.shard_rays
+               else None)
     films_for_seed, render_frame = frame_renderer(params, fcfg, rcfg,
-                                                  args.psi, dev)
+                                                  args.psi, dev, devices)
 
     traj = camera_trajectory(args.trajectory, args.num_frames,
                              base_fov=12.0)

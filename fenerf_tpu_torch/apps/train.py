@@ -1,5 +1,6 @@
 """Adversarial training CLI on the port (counterpart of
-fenerf_tpu/apps/train.py, on one device).
+fenerf_tpu/apps/train.py), on one device or data-parallel over several
+processes.
 
 Reference: train_double_latent_semantic.py. The loop is the JAX
 package's: curriculum stages with their data loader and kernel route, the
@@ -22,13 +23,28 @@ Both model families train: the latent-grid family (e.g. --curriculum
 CelebA_latent_grid, a CelebA jpg glob) renders its samples and FID images
 without psi (its FiLM is per point: there is no W-space average), writes
 RGB sheets only and a grid generator.npz, and every render takes the torch
-route. Not ported: --multihost / --coordinator / --num_processes /
---process_id (DDP over NCCL, ROADMAP A4) raise.
+route.
+
+Several processes (train/sharding.py: one device each, NCCL on CUDA, gloo
+with --device cpu) train one model on a global batch of batch_size x world
+(--batch_per_device, the default: the reference's DDP ranks each load a
+whole batch_size) or of batch_size (--global_batch). Every rank draws the
+step's global random numbers from the same seed and loads its own share of
+the data (iterate_batches' host_index / n_hosts); gradients are summed over
+the ranks. Rank 0 alone logs, writes metrics.jsonl, samples, checkpoints
+and the FID; every rank reads --load_dir and renders its share of the FID
+images. The ranks meet at a host barrier after each eval; the step's own
+collectives line them up otherwise, with FENERF_BARRIER_TIMEOUT_MS as
+their deadline (a rank's first step may build kernels for minutes).
 
 Usage:
   python -m fenerf_tpu_torch.apps.train \
       --curriculum CelebA_double_semantic_texture_embedding_256_dim_96 \
       --output_dir output/run1 --data_root data/celebahq_mask [--device cuda]
+  # two processes on one host, either way:
+  torchrun --nproc_per_node 2 -m fenerf_tpu_torch.apps.train --multihost ...
+  python -m fenerf_tpu_torch.apps.train --coordinator 127.0.0.1:29500 \
+      --num_processes 2 --process_id {0,1} ...
 """
 from __future__ import annotations
 
@@ -40,8 +56,7 @@ import math
 import os
 import time
 
-A4 = ("multi-process training (DDP over NCCL, train/sharding.py) is not "
-      "ported yet: ROADMAP A4")
+TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
 
 def _seeded(device, seed: int, tag: int):
@@ -77,13 +92,23 @@ def main(argv=None):
                    help="'start:stop' step range to trace with "
                         "torch.profiler into <output_dir>/profile")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported yet (ROADMAP A4)")
+                   help="join a process group from torchrun's environment "
+                        "(MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, "
+                        "LOCAL_RANK)")
     p.add_argument("--coordinator", default=None,
-                   help="not ported yet (ROADMAP A4)")
-    p.add_argument("--num_processes", type=int, default=None,
-                   help="not ported yet (ROADMAP A4)")
-    p.add_argument("--process_id", type=int, default=None,
-                   help="not ported yet (ROADMAP A4)")
+                   help="host:port of rank 0 (tcp://); with --num_processes "
+                        "and --process_id; on one host or many, rank i on "
+                        "cuda:(i mod the host's GPUs)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--batch_per_device", action="store_true", default=True,
+                   help="the curriculum's batch_size is per process "
+                        "(reference semantics: each DDP rank loads a whole "
+                        "batch_size, datasets.py:96-114); global batch = "
+                        "batch_size x processes (the default)")
+    p.add_argument("--global_batch", dest="batch_per_device",
+                   action="store_false",
+                   help="the curriculum's batch_size is the global batch")
     p.add_argument("--full_batch", action="store_true",
                    help="run the G phase (and the D-phase fakes) over the "
                         "full batch while computing the exact "
@@ -97,9 +122,28 @@ def main(argv=None):
                    help="torch device (raises if CUDA is requested and "
                         "absent)")
     args = p.parse_args(argv)
-    if (args.multihost or args.coordinator or args.num_processes
-            or args.process_id is not None):
-        raise NotImplementedError(A4)
+    if args.multihost:
+        missing = [k for k in TORCHRUN_ENV if k not in os.environ]
+        if missing:
+            raise RuntimeError(
+                f"--multihost reads torchrun's environment, but {missing} "
+                f"are not set: launch with torchrun, or pass --coordinator "
+                f"host:port --num_processes N --process_id I")
+        coordinator = (f"{os.environ['MASTER_ADDR']}:"
+                       f"{os.environ['MASTER_PORT']}")
+        world, rank = (int(os.environ["WORLD_SIZE"]),
+                       int(os.environ["RANK"]))
+    elif args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            raise ValueError("--coordinator needs --num_processes and "
+                             "--process_id")
+        coordinator = args.coordinator
+        world, rank = args.num_processes, args.process_id
+    elif args.num_processes is not None or args.process_id is not None:
+        raise ValueError("--num_processes / --process_id need --coordinator "
+                         "(or --multihost under torchrun)")
+    else:
+        coordinator, world, rank = None, 1, 0
 
     import torch
 
@@ -111,6 +155,7 @@ def main(argv=None):
     from fenerf_tpu_torch.nn import fields
     from fenerf_tpu_torch.ops import film_mlp
     from fenerf_tpu_torch.train import loop as looplib
+    from fenerf_tpu_torch.train import sharding
     from fenerf_tpu_torch.train.curriculum import get_curriculum
     from fenerf_tpu_torch.utils import checkpoint as ckpt
     from fenerf_tpu_torch.utils.image import (make_grid, mask2color,
@@ -121,6 +166,15 @@ def main(argv=None):
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass --device cpu to "
                            "train on the CPU")
+    if coordinator is not None:
+        group = sharding.init_distributed(coordinator, world, rank,
+                                          device_type=dev.type)
+        dev = group.device
+        print(f"[dist] rank {rank} of {world} on {dev} "
+              f"({torch.distributed.get_backend()})", flush=True)
+    else:
+        group = sharding.Group(device=dev)
+    lead = group.rank == 0      # logs and writes
     os.makedirs(args.output_dir, exist_ok=True)
     cur = get_curriculum(args.curriculum)
     fo = tuple(sorted(json.loads(args.field_overrides).items())) \
@@ -138,16 +192,22 @@ def main(argv=None):
             repl["full_batch"] = True
         if args.grad_rays < 1.0:
             repl["grad_rays"] = args.grad_rays
+        if args.batch_per_device and "batch_size" not in so:
+            # reference semantics: the curriculum's batch_size is per rank
+            repl["batch_size"] = m.batch_size * group.world
         return dataclasses.replace(m, **repl) if repl else m
 
     meta = meta_at(0)
     state = looplib.init_train_state(meta, seed=args.seed, device=dev)
     start_step = 0
     if args.load_dir:
+        # every rank reads the checkpoint; rank 0's copy is then broadcast
         path = os.path.join(args.load_dir, "train_state.npz")
         state = ckpt.load(path, state)
         start_step = int(state.step)
-        print(f"resumed from {path} at step {start_step}")
+        if lead:
+            print(f"resumed from {path} at step {start_step}")
+    sharding.replicate(group, state)
     if args.set_step is not None:
         state = state._replace(step=args.set_step)
         start_step = args.set_step
@@ -159,9 +219,12 @@ def main(argv=None):
                            generator=_seeded(dev, args.seed, 2), device=dev)
 
     # options dump (reference options.txt, :189-197)
-    with open(os.path.join(args.output_dir, "options.txt"), "w") as f:
-        f.write(f"{vars(args)}\n\n{meta}\n")
-    metrics_log = open(os.path.join(args.output_dir, "metrics.jsonl"), "a")
+    metrics_log = None
+    if lead:
+        with open(os.path.join(args.output_dir, "options.txt"), "w") as f:
+            f.write(f"{vars(args)}\n\n{meta}\n")
+        metrics_log = open(os.path.join(args.output_dir, "metrics.jsonl"),
+                           "a")
 
     data_iter = None
     stage_meta = None
@@ -237,10 +300,14 @@ def main(argv=None):
             kpath = f"{g_bk}(G)+{film_mlp.backend_for(fc, dev)}(D)"
             route = route_line(fc, dataclasses.replace(
                 m.render_config(), backend=g_bk), dev)
-            print(f"[stage] step={step} img={m.img_size} bs={m.batch_size} "
-                  f"steps/ray={m.num_steps} split={m.batch_split}"
-                  f"{'(full_batch)' if m.full_batch else ''} "
-                  f"kernel={kpath} G: {route}", flush=True)
+            if lead:
+                print(f"[stage] step={step} img={m.img_size} "
+                      f"bs={m.batch_size} steps/ray={m.num_steps} "
+                      f"split={m.batch_split}"
+                      f"{'(full_batch)' if m.full_batch else ''} "
+                      f"kernel={kpath} G: {route}"
+                      f"{f' ranks={group.world}' if group.world > 1 else ''}",
+                      flush=True)
             if m.dataset != "CelebA":
                 dataset = make_dataset(m.dataset, m.dataset_path, m.img_size,
                                        background_mask=m.background_mask)
@@ -254,8 +321,13 @@ def main(argv=None):
                 first = step
             if data_iter is not None:
                 data_iter.close()   # stops its loader processes
-            data_iter = iterate_batches(dataset, m.batch_size,
+            # each rank loads its disjoint share of the global batch
+            data_iter = iterate_batches(dataset,
+                                        sharding.per_rank(group,
+                                                          m.batch_size),
                                         seed=args.seed + first,
+                                        host_index=group.rank,
+                                        n_hosts=group.world,
                                         skip=step - first, timings=load_s)
 
         t_data = time.perf_counter()
@@ -272,8 +344,8 @@ def main(argv=None):
 
             profiler.enter_context(
                 trace(os.path.join(args.output_dir, "profile")))
-        state, metrics = looplib.train_step(
-            state, imgs, labels, scal, m,
+        state, metrics = sharding.train_step_sharded(
+            state, imgs, labels, scal, m, group,
             generator=_seeded(dev, args.seed, 10_000 + step))
         if prof_range and step == prof_range[1]:
             profiler.close()
@@ -289,8 +361,10 @@ def main(argv=None):
             # (the reference has no failure detection, SURVEY.md §5)
             bad = [k for k, v in mvals.items() if not math.isfinite(v)]
             if bad:
-                ckpt.save(os.path.join(args.output_dir,
-                                       "train_state_diverged.npz"), state)
+                if lead:
+                    ckpt.save(os.path.join(args.output_dir,
+                                           "train_state_diverged.npz"),
+                              state)
                 data_iter.close()
                 raise SystemExit(
                     f"non-finite metrics {bad} at step {step}; state saved "
@@ -308,13 +382,14 @@ def main(argv=None):
             if dev.type == "cuda":
                 line["peak_hbm_gb"] = round(
                     torch.cuda.max_memory_allocated(dev) / 2 ** 30, 2)
-            print(json.dumps(line), flush=True)
-            metrics_log.write(json.dumps(line) + "\n")
-            metrics_log.flush()
+            if lead:
+                print(json.dumps(line), flush=True)
+                metrics_log.write(json.dumps(line) + "\n")
+                metrics_log.flush()
 
         step += 1
 
-        if args.model_save_interval > 0 \
+        if lead and args.model_save_interval > 0 \
                 and step % args.model_save_interval == 0:
             ckpt.save(os.path.join(args.output_dir, "train_state.npz"), state)
             # m.field_overrides carries the effective overrides
@@ -329,19 +404,21 @@ def main(argv=None):
                 os.path.join(args.output_dir, "generator.npz"),
                 state.g_params, state.ema.params, state.ema2.params,
                 m.model, step, field_kwargs=fkw)
-        if args.sample_interval > 0 and step % args.sample_interval == 0:
+        if lead and args.sample_interval > 0 \
+                and step % args.sample_interval == 0:
             sample_grids(state, m, step)
 
         if args.eval_freq > 0 and step % args.eval_freq == 0:
             _et0 = time.perf_counter()
             real_dir = os.path.join(args.output_dir, "evaluation/real")
             gen_dir = os.path.join(args.output_dir, "evaluation/generated")
-            fidlib.setup_evaluation(dataset, real_dir,
-                                    target_size=m.target_size,
-                                    num_real=args.num_real_imgs)
+            if lead:
+                fidlib.setup_evaluation(dataset, real_dir,
+                                        target_size=m.target_size,
+                                        num_real=args.num_real_imgs)
+                print(f"[eval-t] setup_evaluation_s="
+                      f"{time.perf_counter() - _et0:.3f}", flush=True)
             _et1 = time.perf_counter()
-            print(f"[eval-t] setup_evaluation_s={_et1 - _et0:.3f}",
-                  flush=True)
             fcfg = m.field_config()
             ecfg = m.eval_render_config(
                 img_size=min(128, m.target_size), ray_chunk=4096,
@@ -357,36 +434,51 @@ def main(argv=None):
                                   g)
                 return out["pixels"][:, -3:]
 
-            fidlib.output_images(render_batch, gen_dir,
-                                 num_eval=args.num_eval_imgs, device=dev)
+            # the batches round-robin over the ranks
+            mine = fidlib.output_images(render_batch, gen_dir,
+                                        num_eval=args.num_eval_imgs,
+                                        host_index=group.rank,
+                                        n_hosts=group.world, device=dev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             _et2 = time.perf_counter()
             print(f"[eval-t] output_images_s={_et2 - _et1:.3f} "
-                  f"images={args.num_eval_imgs}", flush=True)
-            try:
-                fid = fidlib.calculate_fid(
-                    real_dir, gen_dir,
-                    feature_fn=fidlib.inception_features(device=dev))
-                with open(os.path.join(args.output_dir, "fid.txt"),
-                          "a") as f:
-                    f.write(f"\n{step}:{fid}")
-                n_scored = sum(len(os.listdir(d))
-                               for d in (real_dir, gen_dir))
-                print(f"[eval-t] calculate_fid_s="
-                      f"{time.perf_counter() - _et2:.3f} images={n_scored}",
-                      flush=True)
-                print(f"[fid] step={step} fid={fid:.3f}", flush=True)
-            except FileNotFoundError as e:
-                print(f"[fid] skipped: {e}")
+                  f"images={len(mine)} rank={group.rank}", flush=True)
+            # rank 0 scores once every rank has written its share
+            sharding.host_barrier(group, f"fenerf_eval_images_{step}")
+            if lead:
+                _et2 = time.perf_counter()
+                try:
+                    fid = fidlib.calculate_fid(
+                        real_dir, gen_dir,
+                        feature_fn=fidlib.inception_features(device=dev))
+                    with open(os.path.join(args.output_dir, "fid.txt"),
+                              "a") as f:
+                        f.write(f"\n{step}:{fid}")
+                    n_scored = sum(len(os.listdir(d))
+                                   for d in (real_dir, gen_dir))
+                    print(f"[eval-t] calculate_fid_s="
+                          f"{time.perf_counter() - _et2:.3f} "
+                          f"images={n_scored}", flush=True)
+                    print(f"[fid] step={step} fid={fid:.3f}", flush=True)
+                except FileNotFoundError as e:
+                    print(f"[fid] skipped: {e}")
+            # the other ranks wait for rank 0's score (the reference syncs
+            # the same way, dist.barrier() at train_double_latent_semantic
+            # .py:542,548)
+            sharding.host_barrier(group, f"fenerf_eval_{step}")
 
     profiler.close()
     if data_iter is not None:
         data_iter.close()
-    ckpt.save(os.path.join(args.output_dir, "train_state.npz"), state)
-    stats.dump(os.path.join(args.output_dir, "stats.json"))
-    metrics_log.close()
-    print("training complete")
+    if lead:
+        ckpt.save(os.path.join(args.output_dir, "train_state.npz"), state)
+        stats.dump(os.path.join(args.output_dir, "stats.json"))
+        metrics_log.close()
+        print("training complete")
+    if coordinator is not None:
+        sharding.host_barrier(group, "fenerf_done")
+        sharding.shutdown()
     return state
 
 

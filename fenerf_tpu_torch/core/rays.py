@@ -53,25 +53,51 @@ class CameraSample(NamedTuple):
 
 
 CAMERA_DRAWS = {"uniform": "uniform", "normal": "normal",
-                "gaussian": "normal", "spherical_uniform": "uniform"}
+                "gaussian": "normal", "spherical_uniform": "uniform",
+                "hybrid": "hybrid", "truncated_gaussian": "truncated"}
+
+
+def truncated_normal(shape, generator: torch.Generator | None = None,
+                     lower: float = -2.0, upper: float = 2.0,
+                     device="cpu") -> torch.Tensor:
+    """Standard normals truncated to [lower, upper] by the inverse CDF of
+    uniform draws (as jax.random.truncated_normal draws them)."""
+    cdf = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+    lo, hi = cdf(lower), cdf(upper)
+    u = torch.rand(shape, generator=generator, device=device)
+    x = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
+    return x.clamp(lower, upper)
 
 
 def sample_camera(n: int, h_stddev, v_stddev, h_mean, v_mean,
                   mode: str | None = "normal", r: float = 1.0,
                   cam_h: torch.Tensor | None = None,
                   cam_v: torch.Tensor | None = None,
+                  cam_coin: torch.Tensor | None = None,
                   device="cpu") -> CameraSample:
     """Camera positions on a sphere. cam_h / cam_v are the raw (n, 1)
-    draws of the mode (standard normals or U[0,1), see CAMERA_DRAWS);
-    mode None is the deterministic mean, where h_mean / v_mean may be
-    (n, 1) tensors (one pose per micro-batched request)."""
+    draws of the mode (see CAMERA_DRAWS): standard normals, U[0,1), or
+    normals truncated to [-2, 2]; for 'hybrid' they are (n, 2), the normal
+    draw in column 0 and the uniform one in column 1, and cam_coin (a
+    bool, one for the whole batch) picks the uniform branch (the
+    reference flips one coin per call). Mode None is the deterministic
+    mean, where h_mean / v_mean may be (n, 1) tensors (one pose per
+    micro-batched request)."""
     shape = (n, 1)
     if mode == "uniform":
         theta = (cam_h - 0.5) * 2 * h_stddev + h_mean
         phi = (cam_v - 0.5) * 2 * v_stddev + v_mean
-    elif mode in ("normal", "gaussian"):
+    elif mode in ("normal", "gaussian", "truncated_gaussian"):
         theta = cam_h * h_stddev + h_mean
         phi = cam_v * v_stddev + v_mean
+    elif mode == "hybrid":
+        # the uniform branch spans twice the stddev (rays.py:93-103)
+        theta_u = (cam_h[:, 1:] - 0.5) * 2 * h_stddev * 2 + h_mean
+        phi_u = (cam_v[:, 1:] - 0.5) * 2 * v_stddev * 2 + v_mean
+        theta_n = cam_h[:, :1] * h_stddev + h_mean
+        phi_n = cam_v[:, :1] * v_stddev + v_mean
+        theta = torch.where(cam_coin, theta_u, theta_n)
+        phi = torch.where(cam_coin, phi_u, phi_n)
     elif mode == "spherical_uniform":
         theta = (cam_h - 0.5) * 2 * h_stddev + h_mean
         v_std, v_mn = v_stddev / math.pi, v_mean / math.pi
@@ -83,7 +109,7 @@ def sample_camera(n: int, h_stddev, v_stddev, h_mean, v_mean,
         phi = torch.as_tensor(v_mean, dtype=torch.float32,
                               device=device).expand(shape)
     else:
-        raise ValueError(f"camera mode {mode!r} is not ported")
+        raise ValueError(f"unknown camera mode {mode!r}")
     phi = phi.clamp(1e-5, math.pi - 1e-5)
     sin_phi = torch.sin(phi)
     origin = torch.cat([r * sin_phi * torch.cos(theta), r * torch.cos(phi),
@@ -122,7 +148,8 @@ def transform_rays(n: int, ray_dirs_cam: torch.Tensor, z_vals: torch.Tensor,
                    mode: str | None = "normal",
                    jitter: torch.Tensor | None = None,
                    cam_h: torch.Tensor | None = None,
-                   cam_v: torch.Tensor | None = None) -> TransformedRays:
+                   cam_v: torch.Tensor | None = None,
+                   cam_coin: torch.Tensor | None = None) -> TransformedRays:
     """Jitter the samples (when `jitter` is given), place a camera per batch
     element and map the rays to world space. Sample points are formed by
     the caller as origin + dir * z."""
@@ -134,7 +161,8 @@ def transform_rays(n: int, ray_dirs_cam: torch.Tensor, z_vals: torch.Tensor,
     else:
         z = z.contiguous()
     cam = sample_camera(n, h_stddev, v_stddev, h_mean, v_mean, mode,
-                        cam_h=cam_h, cam_v=cam_v, device=z_vals.device)
+                        cam_h=cam_h, cam_v=cam_v, cam_coin=cam_coin,
+                        device=z_vals.device)
     forward = normalize_vecs(-cam.origin)
     c2w = cam2world_matrix(forward, cam.origin)
     rot = c2w[:, :3, :3]

@@ -89,10 +89,11 @@ def output_images(render_fn, gen_dir: str, num_eval: int = 2048,
     """Render EMA samples round-robin over hosts (reference
     output_images_double :126-152). render_fn(generator, n) -> (n, 3, H, W)
     in [-1, 1]; batch i draws from a torch.Generator on `device` seeded
-    (seed, i)."""
+    (seed, i). Returns the indices of the images this host wrote."""
     os.makedirs(gen_dir, exist_ok=True)
     idx = 0
     batch_id = 0
+    written = []
     while idx < num_eval:
         if batch_id % n_hosts == host_index:
             g = torch.Generator(device=device).manual_seed(
@@ -103,8 +104,10 @@ def output_images(render_fn, gen_dir: str, num_eval: int = 2048,
             for j in range(min(batch_size, num_eval - idx)):
                 save_png(os.path.join(gen_dir, f"{idx + j:06d}.png"),
                          _to_u8(imgs[j]))
+                written.append(idx + j)
         idx += batch_size
         batch_id += 1
+    return written
 
 
 def _load_images(d: str, limit: int | None = None) -> np.ndarray:

@@ -2,6 +2,9 @@
 render_core with its gradient subset of rays (_shade_grad_subset), render, render_from_z, render_truncated and the shape
 extraction's voxel_points and eval_volume for the FiLM-SIREN family;
 render_grid_from_z and eval_volume_grid for the latent-grid family; the
+same over several devices (render_core's strips of rows and the lattice's
+slabs, with render_image_sharded / render_grid_sharded and
+eval_volume_sharded / eval_volume_grid_sharded naming them); the
 family dispatch get_any_config / init_any_field / render_any).
 
 Pipeline: ray grid -> stratified jitter -> camera -> cam2world -> coarse
@@ -22,6 +25,7 @@ JAX package and the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import NamedTuple
@@ -90,11 +94,13 @@ class RayNoise(NamedTuple):
 class RenderDraws(NamedTuple):
     """Every random number one render consumes."""
     jitter: torch.Tensor | None  # (B, R, S) U[0,1) stratified jitter
-    cam_h: torch.Tensor | None   # (B, 1) camera yaw draw
-    cam_v: torch.Tensor | None   # (B, 1) camera pitch draw
+    cam_h: torch.Tensor | None   # (B, 1) camera yaw draw ((B, 2): hybrid)
+    cam_v: torch.Tensor | None   # (B, 1) camera pitch draw ((B, 2): hybrid)
     noise: RayNoise
     ray_perm: torch.Tensor | None = None  # (R,) permutation of the rays
                                           # (grad_rays < 1 only)
+    cam_coin: torch.Tensor | None = None  # () bool, one for the batch
+                                          # (camera mode 'hybrid' only)
 
 
 def _noise_is_dead(noise_std) -> bool:
@@ -125,16 +131,30 @@ def draw_render(gen: torch.Generator, batch: int, rcfg: RenderConfig,
     shape = (batch, rcfg.n_rays, rcfg.num_steps)
     jitter = (torch.rand(shape, generator=gen, device=device)
               if rcfg.perturb else None)
-    cam_h = cam_v = None
+    cam_h = cam_v = coin = None
     kind = raylib.CAMERA_DRAWS.get(camera_mode) if camera_mode else None
-    if kind is not None:
-        draw = torch.rand if kind == "uniform" else torch.randn
+    if camera_mode and kind is None:
+        raise ValueError(f"unknown camera mode {camera_mode!r}")
+    if kind == "hybrid":
+        # the normal pair, the uniform pair and one coin for the batch
+        normal = [torch.randn((batch, 1), generator=gen, device=device)
+                  for _ in range(2)]
+        unif = [torch.rand((batch, 1), generator=gen, device=device)
+                for _ in range(2)]
+        cam_h, cam_v = (torch.cat([n, u], dim=1)
+                        for n, u in zip(normal, unif))
+        coin = torch.rand((), generator=gen, device=device) < 0.5
+    elif kind is not None:
+        draw = {"uniform": torch.rand, "normal": torch.randn,
+                "truncated": lambda shape, generator, device:
+                raylib.truncated_normal(shape, generator, device=device)
+                }[kind]
         cam_h = draw((batch, 1), generator=gen, device=device)
         cam_v = draw((batch, 1), generator=gen, device=device)
     noise = draw_ray_noise(gen, batch, rcfg.n_rays, rcfg, noise_std, device)
     perm = (torch.randperm(rcfg.n_rays, generator=gen, device=device)
             if rcfg.grad_rays < 1.0 else None)
-    return RenderDraws(jitter, cam_h, cam_v, noise, perm)
+    return RenderDraws(jitter, cam_h, cam_v, noise, perm, coin)
 
 
 RAY_KERNEL_MODES = ("never", "auto")
@@ -277,6 +297,29 @@ def _shade_chunked(field_fn, output_dim, rcfg, origins, dirs, z_vals,
     return tuple(torch.cat(ts, dim=1) for ts in zip(*parts))
 
 
+def _shade_strips(field_fn, output_dim, rcfg, origins, dirs, z_vals,
+                  noise: RayNoise, noise_std, devices):
+    """_shade_chunked over len(devices) equal strips of the ray axis (whole
+    pixel rows), strip i on devices[i], enqueued with no wait in between
+    and put together on the device of the inputs. Each ray's math is
+    independent of its strip, so the result equals one strip, bit for bit
+    where each strip is a whole number of ray_chunk blocks."""
+    home = z_vals.device
+    rows = z_vals.shape[1] // len(devices)
+    parts = []
+    for i, dev in enumerate(devices):
+        sl = slice(i * rows, (i + 1) * rows)
+        cut = lambda t: None if t is None else t[:, sl].to(dev)
+        ns = (noise_std.to(dev) if isinstance(noise_std, torch.Tensor)
+              else noise_std)
+        with _device_context(dev):
+            parts.append(_shade_chunked(
+                field_fn, output_dim, rcfg, cut(origins), cut(dirs),
+                cut(z_vals), RayNoise(*(cut(t) for t in noise)), ns))
+    return tuple(torch.cat([p[k].to(home) for p in parts], dim=1)
+                 for k in range(3))
+
+
 def _shade_grad_subset(field_fn, output_dim, rcfg, perm, origins, dirs,
                        z_vals, noise: RayNoise, noise_std):
     """Shade with gradients restricted to a grad_rays fraction of the rays
@@ -313,6 +356,44 @@ def _shade_grad_subset(field_fn, output_dim, rcfg, perm, origins, dirs,
     return comp, depth, wsum, inv < n_grad
 
 
+def _on(tree, dev):
+    """`tree`'s tensors (and those of a dataclass leaf such as a FilmPack)
+    on `dev`, with no copy where they already are."""
+    from fenerf_tpu_torch.compat.jax_bridge import tree_map
+
+    def move(t):
+        if isinstance(t, torch.Tensor):
+            return t.to(dev)
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(t, **{
+                f.name: getattr(t, f.name).to(dev)
+                for f in dataclasses.fields(t) if f.init
+                and isinstance(getattr(t, f.name), torch.Tensor)})
+        return t
+
+    return tree_map(move, tree)
+
+
+def _device_context(dev):
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _by_device(home, here, make):
+    """`here` on device `home`, make(dev) once on any other device: a field
+    closure reads its parameters where its points lie, so the strips and
+    slabs of a sharded render or lattice each read their own device's
+    copy, and an unsharded call reads `here` untouched."""
+    made = {torch.device(home): here}
+
+    def on(dev):
+        if dev not in made:
+            made[dev] = make(dev)
+        return made[dev]
+
+    return on
+
+
 def _film_field_fn(params, fcfg, rcfg: RenderConfig, film_geo, film_app):
     compute_dtype = (torch.bfloat16 if rcfg.compute_dtype == "bfloat16"
                      else torch.float32)
@@ -327,9 +408,12 @@ def _film_field_fn(params, fcfg, rcfg: RenderConfig, film_geo, film_app):
 
         params = film_mlp.with_pack(params, fcfg)
     # kernel_train packs the current parameters inside every field call
+    here = (params, film_geo, film_app)
+    on = _by_device(film_geo[0].device, here, lambda dev: _on(here, dev))
 
     def field_fn(pts, drs):
-        return fields.apply_field(params, fcfg, pts, drs, film_geo, film_app,
+        p, fg, fa = on(pts.device)
+        return fields.apply_field(p, fcfg, pts, drs, fg, fa,
                                   compute_dtype=compute_dtype,
                                   backend=rcfg.backend)
 
@@ -340,7 +424,7 @@ def render_core(field_fn, output_dim: int, rcfg: RenderConfig,
                 batch_size: int, noise_std=0.0, camera: tuple | None = None,
                 generator: torch.Generator | None = None,
                 draws: RenderDraws | None = None,
-                device="cpu") -> dict[str, torch.Tensor]:
+                device="cpu", devices=None) -> dict[str, torch.Tensor]:
     """The full volumetric pipeline around a per-point field
     field_fn(points (B,M,3), dirs (B,M,3)) -> (B,M,output_dim).
 
@@ -348,6 +432,13 @@ def render_core(field_fn, output_dim: int, rcfg: RenderConfig,
     with a deterministic pose; pitch / yaw may be (B, 1) tensors.
     draws: every random number of the render (RenderDraws); without it
     they come from `generator` (default: seeded 0) on `device`.
+    devices: ray-parallel rendering (the JAX package's shard_map over a
+    mesh; a sequence of torch.devices stands in for the mesh and may
+    repeat a device). The pixel rows are split into len(devices) equal
+    strips, strip i shaded on devices[i] and put together on devices[0],
+    where the draws are made once for the whole image; field_fn reads its
+    parameters on each strip's device (_by_device). The result equals the
+    unsharded render (_shade_strips). Evaluation only: not with grad_rays.
 
     Returns pixels (B, C, H, W) in [-1, 1], depth (B, H, W), opacity
     (B, H, W) and position (B, 2) = sampled (pitch, yaw); with
@@ -363,6 +454,14 @@ def render_core(field_fn, output_dim: int, rcfg: RenderConfig,
         h_mean, v_mean = rcfg.h_mean, rcfg.v_mean
         h_stddev, v_stddev = rcfg.h_stddev, rcfg.v_stddev
         sample_dist = rcfg.sample_dist
+    if devices:
+        devices = [torch.device(d) for d in devices]
+        device = devices[0]
+        if rcfg.img_size % len(devices):
+            raise ValueError(f"img_size {rcfg.img_size} is not divisible "
+                             f"into {len(devices)} strips")
+        if rcfg.grad_rays < 1.0:
+            raise ValueError("ray-parallel renders take no grad_rays")
     if draws is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -375,7 +474,7 @@ def render_core(field_fn, output_dim: int, rcfg: RenderConfig,
     tr = raylib.transform_rays(
         batch_size, dirs_cam, z0, h_stddev, v_stddev, h_mean, v_mean,
         mode=sample_dist, jitter=draws.jitter if rcfg.perturb else None,
-        cam_h=draws.cam_h, cam_v=draws.cam_v)
+        cam_h=draws.cam_h, cam_v=draws.cam_v, cam_coin=draws.cam_coin)
     grad_mask = None
     if rcfg.grad_rays < 1.0:
         if draws.ray_perm is None:
@@ -383,6 +482,10 @@ def render_core(field_fn, output_dim: int, rcfg: RenderConfig,
         comp, depth, weights_sum, grad_mask = _shade_grad_subset(
             field_fn, output_dim, rcfg, draws.ray_perm, tr.ray_origins,
             tr.ray_dirs, tr.z_vals, draws.noise, noise_std)
+    elif devices:
+        comp, depth, weights_sum = _shade_strips(
+            field_fn, output_dim, rcfg, tr.ray_origins, tr.ray_dirs,
+            tr.z_vals, draws.noise, noise_std, devices)
     else:
         comp, depth, weights_sum = _shade_chunked(
             field_fn, output_dim, rcfg, tr.ray_origins, tr.ray_dirs,
@@ -406,12 +509,14 @@ def render(params, fcfg: fields.FieldConfig, rcfg: RenderConfig, film_geo,
            film_app, batch_size: int, noise_std=0.0,
            camera: tuple | None = None,
            generator: torch.Generator | None = None,
-           draws: RenderDraws | None = None) -> dict[str, torch.Tensor]:
-    """Render a batch of images from W-space film activations."""
+           draws: RenderDraws | None = None,
+           devices=None) -> dict[str, torch.Tensor]:
+    """Render a batch of images from W-space film activations (over
+    `devices` in strips of rows: render_core)."""
     field_fn = _film_field_fn(params, fcfg, rcfg, film_geo, film_app)
     return render_core(field_fn, fcfg.output_dim, rcfg, batch_size,
                        noise_std, camera, generator, draws,
-                       device=film_geo[0].device)
+                       device=film_geo[0].device, devices=devices)
 
 
 def render_from_z(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,
@@ -425,16 +530,23 @@ def render_from_z(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,
                   generator=generator, draws=draws)
 
 
-def _grid_field_fn(params, gcfg: lgf.GridFieldConfig, rcfg: RenderConfig,
-                   z: torch.Tensor):
+def _grid_field_fn(params, gcfg: lgf.GridFieldConfig, z: torch.Tensor,
+                   compute_dtype, plane: torch.Tensor | None = None):
     """The latent-grid field as a per-point closure, its StyleGenerator2D
-    plane computed once here, not once per ray block."""
-    compute_dtype = (torch.bfloat16 if rcfg.compute_dtype == "bfloat16"
-                     else torch.float32)
-    plane = lgf.compute_plane(params, gcfg, z)
+    plane computed once here (or given), not once per ray block, and once
+    on each other device its points lie on (it depends on z alone)."""
+    if plane is None:
+        plane = lgf.compute_plane(params, gcfg, z)
+
+    def make(dev):
+        p, zd = _on((params, z), dev)
+        return p, zd, lgf.compute_plane(p, gcfg, zd)
+
+    on = _by_device(z.device, (params, z, plane), make)
 
     def field_fn(pts, drs):
-        return lgf.apply_grid_field(params, gcfg, pts, drs, z, plane=plane,
+        p, zd, pl = on(pts.device)
+        return lgf.apply_grid_field(p, gcfg, pts, drs, zd, plane=pl,
                                     compute_dtype=compute_dtype)
 
     return field_fn
@@ -444,12 +556,46 @@ def render_grid_from_z(params, gcfg: lgf.GridFieldConfig,
                        rcfg: RenderConfig, z: torch.Tensor, noise_std=0.0,
                        camera: tuple | None = None,
                        generator: torch.Generator | None = None,
-                       draws: RenderDraws | None = None):
+                       draws: RenderDraws | None = None, devices=None):
     """Latent-grid family (SPATIALSIRENGRID): z -> StyleGenerator2D plane
-    -> per-point local latents -> render."""
-    field_fn = _grid_field_fn(params, gcfg, rcfg, z)
+    -> per-point local latents -> render (over `devices` in strips of
+    rows: render_core)."""
+    compute_dtype = (torch.bfloat16 if rcfg.compute_dtype == "bfloat16"
+                     else torch.float32)
+    field_fn = _grid_field_fn(params, gcfg, z, compute_dtype)
     return render_core(field_fn, gcfg.output_dim, rcfg, z.shape[0],
-                       noise_std, camera, generator, draws, device=z.device)
+                       noise_std, camera, generator, draws, device=z.device,
+                       devices=devices)
+
+
+# ---------------------------------------------------------------------------
+# Ray-parallel renders: render_core over several devices
+# ---------------------------------------------------------------------------
+
+def render_image_sharded(params, fcfg: fields.FieldConfig,
+                         rcfg: RenderConfig, film_geo, film_app, devices,
+                         camera: tuple, batch_size: int = 1, noise_std=0.0,
+                         return_depth: bool = False,
+                         generator: torch.Generator | None = None,
+                         draws: RenderDraws | None = None):
+    """render(camera=..., devices=devices): one image's pixel rows in
+    len(devices) strips (render_core). Returns pixels (B, C, H, W), plus
+    depth (B, H, W) with return_depth."""
+    out = render(params, fcfg, rcfg, film_geo, film_app, batch_size,
+                 noise_std, camera, generator, draws, devices=devices)
+    return (out["pixels"], out["depth"]) if return_depth else out["pixels"]
+
+
+def render_grid_sharded(params, gcfg: lgf.GridFieldConfig,
+                        rcfg: RenderConfig, z: torch.Tensor, devices,
+                        camera: tuple, noise_std=0.0,
+                        return_depth: bool = False,
+                        generator: torch.Generator | None = None,
+                        draws: RenderDraws | None = None):
+    """render_image_sharded for the latent-grid family."""
+    out = render_grid_from_z(params, gcfg, rcfg, z, noise_std, camera,
+                             generator, draws, devices=devices)
+    return (out["pixels"], out["depth"]) if return_depth else out["pixels"]
 
 
 # ---------------------------------------------------------------------------
@@ -559,50 +705,85 @@ def voxel_points(resolution: int, cube_length: float = 0.3,
                        dim=-1)
 
 
+def _eval_lattice(field_fn, points: torch.Tensor, chunk: int, devices):
+    """field_fn over points (N, 3) with the locked (0, 0, -1) view direction
+    (reference extract_double_semantic_shapes.py:57-61), in blocks of
+    `chunk` points, the last padded with zeros. With `devices` the padded
+    lattice is cut into len(devices) contiguous slabs, slab i on
+    devices[i], with the JAX package's padding and block size (a slab a
+    multiple of `chunk` keeps the whole lattice's blocks), put together on
+    devices[0]. Returns (N, output_dim)."""
+    n = points.shape[0]
+    if devices:
+        devices = [torch.device(d) for d in devices]
+        nd = len(devices)
+        pad = (-n) % (nd * chunk) if n > nd * chunk else (-n) % nd
+        chunk = min(chunk, (n + pad) // nd)
+    else:
+        devices, pad = [points.device], (-n) % chunk
+    pts = torch.cat([points, points.new_zeros(pad, 3)]) if pad else points
+    per = pts.shape[0] // len(devices)
+    out = []
+    for i, dev in enumerate(devices):
+        slab = pts[i * per:(i + 1) * per].to(dev)
+        with _device_context(dev):
+            for j in range(0, per, chunk):
+                p = slab[j:j + chunk]
+                d = torch.zeros_like(p)
+                d[..., -1] = -1.0
+                out.append(field_fn(p[None], d[None])[0])
+    return torch.cat([t.to(devices[0]) for t in out])[:n]
+
+
 @torch.no_grad()
 def eval_volume(params, fcfg: fields.FieldConfig, film_geo, film_app,
                 points: torch.Tensor, chunk: int = 262144,
-                compute_dtype=torch.float32) -> torch.Tensor:
+                compute_dtype=torch.float32, devices=None) -> torch.Tensor:
     """Field outputs over a point cloud (N, 3) with a locked view direction
-    (0, 0, -1) (reference extract_double_semantic_shapes.py:57-61), in
-    blocks of `chunk` points (the last padded with zeros). Takes the torch
-    route, as the JAX function takes XLA's. Returns (N, output_dim)."""
-    n = points.shape[0]
-    pad = (-n) % chunk
-    pts = torch.cat([points, points.new_zeros(pad, 3)]) if pad else points
+    (0, 0, -1), in blocks of `chunk` points, over `devices` in slabs
+    (_eval_lattice). Takes the torch route, as the JAX function takes
+    XLA's. Returns (N, output_dim)."""
     # texture table once, outside the chunk loop
     params = fields.with_grid_table(
         params, fcfg,
         torch.bfloat16 if compute_dtype == torch.bfloat16 else None)
-    out = []
-    for i in range(0, pts.shape[0], chunk):
-        p = pts[i:i + chunk]
-        d = torch.zeros_like(p)
-        d[..., -1] = -1.0
-        out.append(fields.apply_field(
-            params, fcfg, p[None], d[None], film_geo, film_app,
-            compute_dtype=compute_dtype)[0])
-    return torch.cat(out)[:n]
+    here = (params, film_geo, film_app)
+    on = _by_device(film_geo[0].device, here, lambda dev: _on(here, dev))
+
+    def field_fn(pts, drs):
+        p, fg, fa = on(pts.device)
+        return fields.apply_field(p, fcfg, pts, drs, fg, fa,
+                                  compute_dtype=compute_dtype)
+
+    return _eval_lattice(field_fn, points, chunk, devices)
 
 
 @torch.no_grad()
 def eval_volume_grid(params, gcfg: lgf.GridFieldConfig, z: torch.Tensor,
                      points: torch.Tensor, chunk: int = 262144,
-                     compute_dtype=torch.float32) -> torch.Tensor:
+                     compute_dtype=torch.float32,
+                     plane: torch.Tensor | None = None,
+                     devices=None) -> torch.Tensor:
     """The latent-grid analogue of eval_volume: field outputs over points
-    (N, 3) for z (1, z_dim) with the locked (0, 0, -1) view direction, in
-    blocks of `chunk` points (the last padded with zeros), the plane
-    computed once. Returns (N, output_dim)."""
-    n = points.shape[0]
-    pad = (-n) % chunk
-    pts = torch.cat([points, points.new_zeros(pad, 3)]) if pad else points
-    plane = lgf.compute_plane(params, gcfg, z)
-    out = []
-    for i in range(0, pts.shape[0], chunk):
-        p = pts[i:i + chunk]
-        d = torch.zeros_like(p)
-        d[..., -1] = -1.0
-        out.append(lgf.apply_grid_field(params, gcfg, p[None], d[None], z,
-                                        plane=plane,
-                                        compute_dtype=compute_dtype)[0])
-    return torch.cat(out)[:n]
+    (N, 3) for z (1, z_dim), the plane computed once per device (or given).
+    Returns (N, output_dim)."""
+    return _eval_lattice(_grid_field_fn(params, gcfg, z, compute_dtype,
+                                        plane), points, chunk, devices)
+
+
+def eval_volume_sharded(params, fcfg: fields.FieldConfig, film_geo,
+                        film_app, points: torch.Tensor, devices,
+                        chunk: int = 262144,
+                        compute_dtype=torch.float32) -> torch.Tensor:
+    """eval_volume(devices=devices): the lattice in len(devices) slabs."""
+    return eval_volume(params, fcfg, film_geo, film_app, points, chunk,
+                       compute_dtype, devices=devices)
+
+
+def eval_volume_grid_sharded(params, gcfg: lgf.GridFieldConfig,
+                             z: torch.Tensor, points: torch.Tensor, devices,
+                             chunk: int = 262144,
+                             compute_dtype=torch.float32) -> torch.Tensor:
+    """eval_volume_grid(devices=devices): the lattice in slabs."""
+    return eval_volume_grid(params, gcfg, z, points, chunk, compute_dtype,
+                            devices=devices)

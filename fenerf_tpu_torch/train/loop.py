@@ -35,6 +35,13 @@ gradient once by the hand adjoint (zexp_table_adjoint).
 Every random number of a step can be passed in as `draws` (StepDraws);
 without it they come from a torch.Generator. Parameters and optimizer
 moments are updated in place (the step returns the same tensors).
+
+Under a data-parallel group (train/sharding.py, `group`), the step runs on
+this rank's share of the global batch: each loss is the rank's share of the
+global loss (its means divided by the world size; the top-k chunks' kept
+sets decided from the whole chunk's scores), each phase's gradient is
+summed over the ranks before the clip and Adam (G's after the table fold),
+and the metrics are summed, so every rank holds the global values.
 """
 from __future__ import annotations
 
@@ -96,7 +103,10 @@ class StepDraws(NamedTuple):
     and the RenderDraws of each of its renders (one per microbatch; G's
     carry the ray permutation when grad_rays < 1), and with a DiffAugment
     policy the draws of D_img's augmentation (reals and fakes alike) and
-    of each G microbatch's (train/diff_augment.py)."""
+    of each G microbatch's (train/diff_augment.py). A rank's share of a
+    step's draws (train/sharding.py::shard_step_draws) keeps the reals'
+    rows of D_img's augmentation in `aug_real` (None: the reals take
+    `aug_d`, as in one process)."""
     z_img: tuple
     fakes_img: list
     z_seg: tuple | None
@@ -105,6 +115,7 @@ class StepDraws(NamedTuple):
     g_renders: list
     aug_d: list | None = None
     aug_g: list | None = None
+    aug_real: list | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -331,23 +342,40 @@ def _d_loss(d_params, dcfg, meta: StageMeta, real_in, fake_in, z_geo, z_app,
             + _identity(meta, f_geo, f_app, f_pos, z_geo, z_app, positions))
 
 
-def _chunk_topk_softplus(scores, frac, n_chunks: int):
+def _chunk_topk_softplus(scores, frac, n_chunks: int, group=None):
     """Sum over n_chunks chunks of softplus(-score) averaged over the
     ceil(frac * chunk) best-scored fakes of each chunk; k from an f32
-    product, as the JAX package computes it."""
-    rows = torch.sort(scores.reshape(n_chunks, -1), dim=1,
-                      descending=True).values
-    sp = _softplus(-rows)
-    bs = rows.shape[1]
-    frac32 = torch.as_tensor(frac, dtype=torch.float32, device=rows.device)
+    product, as the JAX package computes it.
+
+    The kept set is decided on the detached scores of the whole chunk, by
+    a stable sort (ties keep the order of the columns); the loss sums
+    softplus(-score) over the kept fakes. Under a group, `scores` are this
+    rank's share of every chunk (its columns rank * m .. (rank + 1) * m of
+    each): the whole chunk comes from an all-reduce of a zero-padded
+    vector (exact: it only adds zeros), every rank picks the same kept set,
+    and the rank's share is the sum over its own kept fakes."""
+    local = scores.reshape(n_chunks, -1)
+    m = local.shape[1]
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    bs = m * world
+    frac32 = torch.as_tensor(frac, dtype=torch.float32, device=local.device)
     k = torch.ceil(frac32 * bs).to(torch.int32)
-    mask = (torch.arange(bs, device=rows.device) < k).to(sp.dtype)
-    return torch.sum(sp * mask) / k
+    whole = local.new_zeros((n_chunks, bs))
+    cols = slice(rank * m, (rank + 1) * m)
+    whole[:, cols] = local.detach()
+    if group is not None:
+        group.all_reduce(whole)
+    order = torch.sort(whole, dim=1, descending=True, stable=True).indices
+    place = torch.empty_like(order)
+    place.scatter_(1, order, torch.arange(bs, device=order.device).expand(
+        n_chunks, bs).contiguous())
+    kept = (place[:, cols] < k).to(local.dtype)
+    return torch.sum(_softplus(-local) * kept) / k
 
 
 def _g_loss(g_params, d_img_params, d_seg_params, fcfg, rcfg,
             meta: StageMeta, z_geo, z_app, scal: StepScalars, n_chunks: int,
-            draws, aug_draws=None):
+            draws, aug_draws=None, group=None):
     out = gen.render_any(g_params, fcfg, rcfg, z_geo, z_app, scal.noise_std,
                          draws=draws)
     pixels, positions = out["pixels"], out["position"]
@@ -359,18 +387,22 @@ def _g_loss(g_params, d_img_params, d_seg_params, fcfg, rcfg,
     img_s, img_geo, img_app, img_pos = disc.apply_discriminator(
         d_img_params, meta.disc_img_config(), d_img_in, scal.alpha)
     # the identity term is a per-sample mean: summed over an equal-size
-    # partition it is n_chunks times the full-batch mean
-    g_img = (_chunk_topk_softplus(img_s[:, 0], scal.topk_frac, n_chunks)
+    # partition it is n_chunks times the full-batch mean (a rank's share:
+    # its own mean over the world size)
+    world = group.world if group is not None else 1
+    g_img = (_chunk_topk_softplus(img_s[:, 0], scal.topk_frac, n_chunks,
+                                  group)
              + n_chunks * _identity(meta, img_geo, img_app, img_pos, z_geo,
-                                    z_app, positions))
+                                    z_app, positions) / world)
     g_seg = torch.zeros((), device=pixels.device)
     if meta.output_dim > 4:
         seg_in = torch.cat([pixels[:, :-3], fake_rgb.detach()], dim=1)
         seg_s, seg_geo, seg_app, seg_pos = disc.apply_discriminator(
             d_seg_params, meta.disc_seg_config(), seg_in, scal.alpha)
-        g_seg = (_chunk_topk_softplus(seg_s[:, 0], scal.topk_frac, n_chunks)
+        g_seg = (_chunk_topk_softplus(seg_s[:, 0], scal.topk_frac, n_chunks,
+                                      group)
                  + n_chunks * _identity(meta, seg_geo, seg_app, seg_pos,
-                                        z_geo, z_app, positions)
+                                        z_geo, z_app, positions) / world
                  ) * meta.g_seg_loss_lambda
     return g_img + g_seg, (g_img, g_seg)
 
@@ -396,10 +428,14 @@ def _leaf_copy(params: Params) -> Params:
 def train_step(state: TrainState, real_imgs: torch.Tensor,
                real_labels: torch.Tensor, scal: StepScalars,
                meta: StageMeta, draws: StepDraws | None = None,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, group=None):
     """One step of D_img, D_seg and G. real_imgs (B, 3, H, W) and
     real_labels (B, 18, H, W) in [-1, 1] (not read when the model is
-    RGB-only). Returns (state, metrics)."""
+    RGB-only). Returns (state, metrics).
+
+    group: a data-parallel train/sharding.py::Group; the batch and `draws`
+    are then this rank's share (train/sharding.py::train_step_sharded
+    makes them)."""
     fcfg = meta.field_config()
     rcfg = meta.render_config()
     dev = real_imgs.device
@@ -407,6 +443,11 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
     s = meta.batch_split
     if b % s:
         raise ValueError(f"batch {b} not divisible by batch_split {s}")
+    world = group.world if group is not None else 1
+    if world > 1 and draws is None:
+        raise ValueError("a rank's step needs its share of the global "
+                         "draws (train/sharding.py::train_step_sharded)")
+    sum_tree = group.sum_tree if group is not None else (lambda t: t)
     has_seg = meta.output_dim > 4
     if draws is None:
         if generator is None:
@@ -425,8 +466,9 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
                          f"augmentation draws in StepDraws")
     # the image critic's inputs only, reals and fakes with the same draws
     # (the seg critic needs pixel-aligned masks)
-    aug = ((lambda x: diff_augment(x, policy, draws.aug_d)) if policy
-           else (lambda x: x))
+    aug = ((lambda x, d=draws.aug_d: diff_augment(x, policy, d)) if policy
+           else (lambda x, d=None: x))
+    aug_real = draws.aug_real if draws.aug_real is not None else draws.aug_d
     if g_bk == "torch" and rcfg.compute_dtype == "float32":
         table_dtype = None
     else:
@@ -444,15 +486,18 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
 
     # ---------------- D_img ----------------
     zg, za = draws.z_img
-    fake_pix, fake_pos, metrics["fake_opacity"] = _render_fakes(
+    fake_pix, fake_pos, opacity = _render_fakes(
         render_params, fcfg, rcfg, zg, za, draws.fakes_img, scal.noise_std)
+    metrics["fake_opacity"] = opacity / world
     d = _leaf_copy(state.d_img_params)
     # the critics' convolutions exact in every direction: forward, backward
-    # and R1's double backward inside one `with`
+    # and R1's double backward inside one `with`; every term of the loss is
+    # a mean over this rank's examples
     with exact_convs(deterministic=False):
-        loss = _d_loss(d, meta.disc_img_config(), meta, aug(real_imgs),
-                       aug(fake_pix[:, -3:]), zg, za, fake_pos, scal.alpha)
-        grads = _grads(loss, d)
+        loss = _d_loss(d, meta.disc_img_config(), meta,
+                       aug(real_imgs, aug_real), aug(fake_pix[:, -3:]), zg,
+                       za, fake_pos, scal.alpha) / world
+        grads = sum_tree(_grads(loss, d))
     opt_img = make_d_optimizer(meta, "img").step(
         state.d_img_params, grads, state.opt_img)
     metrics["d_img_loss"] = loss.detach()
@@ -469,8 +514,8 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
         with exact_convs(deterministic=False):
             loss = _d_loss(d, meta.disc_seg_config(), meta,
                            torch.cat([real_labels, real_imgs], dim=1),
-                           fake_pix, zg, za, fake_pos, scal.alpha)
-            grads = _grads(loss, d)
+                           fake_pix, zg, za, fake_pos, scal.alpha) / world
+            grads = sum_tree(_grads(loss, d))
         opt_seg = make_d_optimizer(meta, "seg").step(
             state.d_seg_params, grads, state.opt_seg)
         metrics["d_seg_loss"] = loss.detach()
@@ -488,7 +533,8 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
             loss, (li, ls) = _g_loss(
                 rp, state.d_img_params, state.d_seg_params, fcfg, g_rcfg,
                 meta, zg[sl], za[sl], scal, s if n == 1 else 1,
-                draws.g_renders[i], draws.aug_g[i] if policy else None)
+                draws.g_renders[i], draws.aug_g[i] if policy else None,
+                group)
             grads = _grads(loss, rp)
         # f32 accumulation over microbatches (the table's cotangent too)
         g_grads = grads if g_grads is None else tree_unflatten(grads, [
@@ -499,8 +545,17 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
         dtable = g_grads.pop(fields.GRID_TABLE_KEY)
         g_grads["grid"] = g_grads["grid"] + zexp_table_adjoint(
             dtable, tuple(state.g_params["grid"].shape))
-    opt_g = make_g_optimizer(meta).step(state.g_params, g_grads, state.opt_g)
+    # summed over the ranks after the fold: it is linear, and the grid's
+    # gradient is smaller than the table's
+    opt_g = make_g_optimizer(meta).step(state.g_params, sum_tree(g_grads),
+                                        state.opt_g)
     metrics.update(g_loss=g_loss, g_img_loss=g_img, g_seg_loss=g_seg)
+    if world > 1:
+        names = sorted(metrics)
+        total = group.all_reduce(torch.stack([
+            torch.as_tensor(metrics[k], dtype=torch.float32, device=dev)
+            for k in names]))
+        metrics = dict(zip(names, total.unbind()))
     metrics["d_loss"] = metrics["d_img_loss"] + metrics["d_seg_loss"]
     new_state = TrainState(
         g_params=state.g_params, d_img_params=state.d_img_params,

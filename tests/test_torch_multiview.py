@@ -86,20 +86,34 @@ def test_default_route_runs(dense_ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--hd", "--shard_rays"])
-def test_unported_options_raise(flag, dense_ckpt, tmp_path):
-    """--shard_rays waits for a later slice (ROADMAP A6); --hd is ported
-    (tests/test_torch_hd.py) and refuses a checkpoint without the neural
-    renderers' heads, as the JAX CLI does."""
+def test_unported_options_raise(flag, dense_ckpt, tmp_path, monkeypatch):
+    """Both options are ported. --hd (tests/test_torch_hd.py) refuses a
+    checkpoint without the neural renderers' heads, as the JAX CLI does.
+    --shard_rays in four strips (the CPU four times over, through
+    apps/common.py::visible_devices) gives the plain run's views bit for bit
+    (whole ray_chunk blocks per strip); a row count the strips do not
+    divide, and --hd with it, raise."""
+    from fenerf_tpu_torch.apps import common as tcommon
     from fenerf_tpu_torch.apps.render_multiview import main
 
+    ckpt, *_ = dense_ckpt
     if flag == "--hd":
-        ckpt, *_ = dense_ckpt
         with pytest.raises(ValueError, match="no neural-renderer heads"):
             main(["--ckpt", ckpt, flag, "--device", "cpu", "--output_dir",
                   str(tmp_path)])
         return
-    with pytest.raises(NotImplementedError, match="A6"):
-        main(["--ckpt", "unused.npz", flag])
+    monkeypatch.setattr(tcommon, "visible_devices", lambda dev: [dev] * 4)
+    args = ARGS + ["--ckpt", ckpt, "--device", "cpu", "--ray_chunk", "64"]
+    plain = main(args + ["--output_dir", str(tmp_path / "a")])
+    strips = main(args + ["--output_dir", str(tmp_path / "b"), flag])
+    assert len(plain) == len(strips) == 2
+    for (s0, v0, _), (s1, v1, _) in zip(plain, strips):
+        assert s0 == s1 and np.array_equal(v0, v1)
+    odd = ["14" if a == "16" else a for a in args]
+    with pytest.raises(ValueError, match="not divisible by 4 devices"):
+        main(odd + ["--output_dir", str(tmp_path / "c"), flag])
+    with pytest.raises(ValueError, match="single-device"):
+        main(args + ["--output_dir", str(tmp_path / "c"), flag, "--hd"])
 
 
 def test_cuda_is_the_default_device(dense_ckpt, monkeypatch, tmp_path):

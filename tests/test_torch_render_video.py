@@ -193,9 +193,26 @@ def test_cli_frames_match_jax(ckpts, tmp_path, monkeypatch, family, latent):
     assert video.ms_per_frame > 0
 
 
-def test_shard_rays_raises():
-    with pytest.raises(NotImplementedError, match="A6"):
-        tvideo.main(["--ckpt", "unused.npz", "--shard_rays"])
+def test_shard_rays_raises(ckpts, tmp_path, monkeypatch):
+    """--shard_rays is ported: four strips (the CPU four times over,
+    apps/common.py::visible_devices) give the plain run's frames bit for
+    bit, for either family; it raises where the strips do not divide the
+    rows."""
+    from fenerf_tpu_torch.apps import common as tcommon
+
+    monkeypatch.setattr(tcommon, "visible_devices", lambda dev: [dev] * 4)
+    for family in ("film", "grid"):
+        ckpt = ckpts[family][0]
+        args = ["--ckpt", ckpt, "--image_size", "16", "--num_steps", "4",
+                "--num_frames", "2", "--ray_chunk", "64", "--device", "cpu"]
+        (plain,) = tvideo.main(args + ["--output_dir", str(tmp_path / "a")])
+        (strips,) = tvideo.main(args + ["--output_dir", str(tmp_path / "b"),
+                                        "--shard_rays"])
+        assert np.array_equal(plain.frames, strips.frames), family
+    odd = ["14" if a == "16" else a for a in args]
+    with pytest.raises(ValueError, match="not divisible by 4 devices"):
+        tvideo.main(odd + ["--output_dir", str(tmp_path / "c"),
+                           "--shard_rays"])
 
 
 def test_cuda_is_the_default_device(ckpts, monkeypatch, tmp_path):

@@ -131,11 +131,24 @@ def test_extract_shapes_cli_matches_jax(tmp_path):
     assert "element face" in ply and not ply.endswith("element face 0\n")
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """--shard_rays is ported: the lattice in four slabs (the CPU four
+    times over, apps/common.py::visible_devices) writes the plain run's
+    .mrc byte for byte (slabs of whole chunks)."""
+    from fenerf_tpu_torch.apps import common as tcommon
     from fenerf_tpu_torch.apps.extract_shapes import main
 
-    with pytest.raises(NotImplementedError, match="A6"):
-        main(["--ckpt", "unused.npz", "--shard_rays"])
+    jcfg, jp = _dense_jax_params()
+    ckpt = str(tmp_path / "g.npz")
+    jcommon.save_generator(ckpt, jp, jp, jp, FLAGSHIP, step=1,
+                           field_kwargs=TINY_KW)
+    monkeypatch.setattr(tcommon, "visible_devices", lambda dev: [dev] * 4)
+    args = ["--ckpt", ckpt, "--voxel_resolution", "16", "--chunk", "512",
+            "--device", "cpu", "--output_dir"]
+    main(args + [str(tmp_path / "a")])
+    main(args + [str(tmp_path / "b"), "--shard_rays"])
+    a, b = ((tmp_path / d / "shape_seed0.mrc").read_bytes() for d in "ab")
+    assert a == b and len(a) > 16 ** 3 * 4
 
 
 def test_extract_shapes_cli_grid_family(tmp_path):

@@ -313,10 +313,15 @@ def test_cli_smoke_grid(tmp_path, capsys, deterministic):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--multihost"], NotImplementedError, "ROADMAP A4"),
-    (["--num_processes", "2"], NotImplementedError, "ROADMAP A4"),
+    (["--multihost"], RuntimeError, "torchrun's environment"),
+    (["--num_processes", "2"], ValueError, "need --coordinator"),
 ])
-def test_cli_refusals(data_root, tmp_path, extra, exc, match):
+def test_cli_refusals(data_root, tmp_path, extra, exc, match, monkeypatch):
+    """The multi-process flags are ported (tests/test_torch_sharding.py
+    runs two ranks); --multihost outside torchrun and --num_processes
+    without a coordinator are refused before any rendezvous."""
+    for k in tcli.TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(exc, match=match):
         _run(data_root, tmp_path / "x", "--total_steps", "1", *extra)
 
