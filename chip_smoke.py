@@ -23,7 +23,9 @@ latent-grid family's training at its published widths; and both again
 with the switch of the fused per-ray kernels on (FENERF_RAY_KERNELS=auto: ops/csrc/ray_finalize.cu); and the
 ceiling-probe scripts (scripts/profile_torch_{mxu_chain,epilogue_overlap,
 dma_gather}.py) through their kernels (ops/csrc/mxu_chain.cu,
-ops/csrc/mxu_wide.cu, ops/csrc/dma_gather.cu). Every kernel is built here from the checkout.
+ops/csrc/mxu_wide.cu, ops/csrc/dma_gather.cu); and reference-layout
+checkpoints through the converter (apps.convert_checkpoint) rendered
+through the field and ray kernels. Every kernel is built here from the checkout.
 
 Phases (any failure exits non-zero):
   1. card and build: card name and power limit, torch / CUDA versions,
@@ -236,10 +238,28 @@ Phases (any failure exits non-zero):
      over 4 strips of cuda:0 (on this one-GPU machine the CLIs' own
      --shard_rays takes 1) against their plain runs, the film family
      through all three and the grid family through the last two.
+ 13. convert: the film flagship (the serving weights), SPATIALSIRENGRID and
+     SPATIALSIRENSEMANTICHD with its nr_img / nr_seg heads, each pickled as
+     the reference's trainer saves it (a whole generator module of the
+     stand-in reference tree, tests/torch_reference_standins.py, beside
+     ema.pth and ema2.pth), converted by apps.convert_checkpoint --model
+     auto (three subprocesses started together): every leaf of the three
+     trees (and the heads) bit-equal to the params written; render_multiview
+     (ray kernels on; 256^2 film and --hd, 128^2 grid) of each converted
+     .npz byte for byte equal to the directly written checkpoint's sheets,
+     the field and ray kernels launched and no plain version called; the
+     SPADE multiscale patch critic at the JAX defaults (input_nc 22, ndf 64,
+     3 layers, 3 scales) on 4 x 256^2: every feature map against the CPU's
+     (1e-4 of its largest, f32), 5 state-threaded calls' spectral-norm u
+     against the CPU's (1e-5), ms per call; align_face on a synthetic
+     1024^2 photo through its shrink, crop and pad branches (PIL-exact
+     LANCZOS and QUAD in numpy, PIL never imported), then prepare_segmaps'
+     BiSeNet on the card on the aligned face with stand-in weights.
 
 Prints each phase's seconds, the card line, a JSON line of per-kernel
 results (launches per main path, launches_train_cli, launches_grid_train,
-launches_edit, launches_ddp and launches_sharded among them) and, last,
+launches_edit, launches_ddp, launches_sharded and launches_convert among
+them) and, last,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -2367,17 +2387,23 @@ VIDEO_BLOCKS = 128 * 128 // 4096   # steps, ray_chunk 4096
 # interpolated between them
 VIDEO_REF_FRAMES = (0, VIDEO_FRAMES // 2, VIDEO_FRAMES - 1)
 VIDEO_SIZE = 128
-def write_grid_checkpoint(dev, tmp) -> str:
+def _grid_params(dev):
     """SPATIALSIRENGRID at its published widths, random weights (seed 3),
-    the sigma head's bias raised by SIGMA_BIAS (an opaque volume), as a
-    generator .npz of the grid family."""
-    from fenerf_tpu_torch.apps.common import save_generator
+    the sigma head's bias raised by SIGMA_BIAS (an opaque volume)."""
     from fenerf_tpu_torch.nn import latent_grid_field as lgf
 
     cfg = lgf.get_grid_config(GRID)
     params = lgf.init_grid_field(torch.Generator(device=dev).manual_seed(3),
                                  cfg, device=dev)
     params["sigma_head"]["b"] = params["sigma_head"]["b"] + SIGMA_BIAS
+    return cfg, params
+
+
+def write_grid_checkpoint(dev, tmp) -> str:
+    """_grid_params as a generator .npz of the grid family."""
+    from fenerf_tpu_torch.apps.common import save_generator
+
+    cfg, params = _grid_params(dev)
     ckpt = os.path.join(tmp, "generator_grid.npz")
     save_generator(ckpt, params, params, params, GRID, step=0)
     log(f"[grid] wrote {GRID} checkpoint (z {cfg.z_dim}, hidden "
@@ -3005,12 +3031,12 @@ def _edit_score(ckpt, tmp, dev) -> dict:
     return {"metrics_s": pair_s, "launches": render_n}
 
 
-def write_hd_checkpoint(dev, tmp) -> str:
+def _hd_params(dev):
     """SPATIALSIRENSEMANTICHD at its published widths (hidden 256, z 256;
     64 label and 64 RGB feature channels), random weights (seed 5), sigma
     bias SIGMA_BIAS, with stand-in neural-renderer heads (64^2 -> 256^2:
-    RGB, and 19 label channels without the final sigmoid)."""
-    from fenerf_tpu_torch.apps.common import save_generator
+    RGB, and 19 label channels without the final sigmoid) -> (cfg, params,
+    {"nr_img" / "nr_seg": (params, NeuralRendererConfig)})."""
     from fenerf_tpu_torch.nn import fields
     from fenerf_tpu_torch.nn import neural_renderer as nr
 
@@ -3026,6 +3052,14 @@ def write_hd_checkpoint(dev, tmp) -> str:
                                        input_size=HD_FEATURES)
         heads[key] = (nr.init_neural_renderer(
             torch.Generator().manual_seed(out_dim), ncfg), ncfg)
+    return cfg, params, heads
+
+
+def write_hd_checkpoint(dev, tmp) -> str:
+    """_hd_params as a generator .npz with its heads."""
+    from fenerf_tpu_torch.apps.common import save_generator
+
+    cfg, params, heads = _hd_params(dev)
     ckpt = os.path.join(tmp, "generator_hd.npz")
     save_generator(ckpt, params, params, params, HD, step=0,
                    neural_renderers=heads)
@@ -4111,6 +4145,279 @@ def phase_sharded(ckpt, grid_ckpt, tmp, dev) -> dict:
     return {"launches": counts}
 
 
+
+# 13: released checkpoints reach the port through the converter
+CONVERT_SEED = "7"        # render_multiview's seed for the sheets compared
+CONVERT_GRID_SIZE = 128   # the grid family's sheet (its frame size)
+CRITIC_BATCH = 4
+CRITIC_SIZE = 256
+CRITIC_CALLS = 5          # state-threaded calls held to the CPU's
+CRITIC_TOL = 1e-4         # of each feature map's largest magnitude, f32
+CRITIC_U_TOL = 1e-5
+ALIGN_SIZE = 1024         # the synthetic photo; landmarks put qsize > 1024,
+ALIGN_EYES = (350.0, 350.0, 260.0, 200.0)   # so shrink 2, crop and pad run
+
+
+def _standins():
+    """tests/torch_reference_standins.py (torch and numpy only): the
+    stand-in reference tree and its pickle writer."""
+    path = Path(__file__).resolve().parent / "tests" / \
+        "torch_reference_standins.py"
+    spec = importlib.util.spec_from_file_location("torch_reference_standins",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _convert_clis(jobs: dict, root: str) -> float:
+    """python -m fenerf_tpu_torch.apps.convert_checkpoint --model auto for
+    each {name: (generator .pth, out .npz)}, in subprocesses started
+    together; -> seconds until the last ended."""
+    import subprocess
+
+    here = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(here)}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "fenerf_tpu_torch.apps.convert_checkpoint",
+         "--generator", gen, "--model", "auto", "--out", out,
+         "--reference", root], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name, (gen, out) in
+        jobs.items()}
+    bad = {}
+    for name, proc in procs.items():
+        text = proc.communicate(timeout=600)[0]
+        if proc.returncode:
+            bad[name] = text[-3000:]
+        else:
+            log(f"[convert] {text.strip()}")
+    if bad:
+        raise AssertionError(f"[convert] the converter failed: {bad}")
+    return time.perf_counter() - t0
+
+
+def _leaves_equal(npz: str, trees: dict) -> int:
+    """Every leaf of the converted .npz is bit-equal to the tree it was
+    written from ({name: tree}); -> leaves compared."""
+    from fenerf_tpu_torch.compat.jax_bridge import to_numpy_tree, tree_leaves
+
+    n = 0
+    with np.load(npz) as data:
+        for name, tree in trees.items():
+            want = tree_leaves(to_numpy_tree(tree))
+            if len(want) != sum(k.startswith(f"{name}_") for k in
+                                data.files):
+                raise AssertionError(f"{npz}: {name} leaf count")
+            for i, w in enumerate(want):
+                got = data[f"{name}_{i}"]
+                if not (got.dtype == w.dtype and np.array_equal(got, w)):
+                    raise AssertionError(f"{npz}: {name}_{i} differs")
+                n += 1
+    return n
+
+
+def _sheets_equal(a: str, b: str) -> list[str]:
+    """The PNGs of two render_multiview directories, byte for byte."""
+    names = sorted(os.listdir(a))
+    if not names or names != sorted(os.listdir(b)):
+        raise AssertionError(f"sheets {names} vs {sorted(os.listdir(b))}")
+    for n in names:
+        if Path(a, n).read_bytes() != Path(b, n).read_bytes():
+            raise AssertionError(f"[convert] {n}: the converted checkpoint's "
+                                 "sheet differs from the direct one's")
+    return names
+
+
+def _convert_checkpoints(ckpt, grid_ckpt, tmp, dev) -> dict:
+    """The film, grid and HD checkpoints as the reference saves them
+    (whole-module pickles of the stand-in tree beside ema.pth / ema2.pth),
+    converted by the CLI, held leaf for leaf to the params they were
+    written from, then rendered by render_multiview (ray kernels on) bit
+    for bit like the directly written checkpoints."""
+    import dataclasses
+
+    from fenerf_tpu_torch.apps import render_multiview
+
+    st = _standins()
+    root = st.write_tree(os.path.join(tmp, "reference"))
+    fcfg, film, _ = _flagship_params(dev, seed=1, sigma_bias=SIGMA_BIAS)
+    gcfg, grid = _grid_params(dev)
+    hcfg, hd, heads = _hd_params(dev)
+    hd_ckpt = write_hd_checkpoint(dev, os.path.join(tmp, "convert_direct"))
+    cases = {   # name: (model, params, cfg, wrapper class, heads, the
+                #        directly written .npz, render_multiview's flags)
+        "film": (FLAGSHIP, film, fcfg, "DoubleImplicitGenerator3d", None,
+                 ckpt, []),
+        "grid": (GRID, grid, gcfg, "ImplicitGenerator3d", None, grid_ckpt,
+                 ["--image_size", str(CONVERT_GRID_SIZE)]),
+        "hd": (HD, hd, hcfg, "StyleGenerator3d", heads, hd_ckpt, ["--hd"]),
+    }
+    t0 = time.perf_counter()
+    jobs = {}
+    for name, (model, params, cfg, wrapper, hs, _, _) in cases.items():
+        sd = (st.grid_state_dict(params) if name == "grid"
+              else st.field_state_dict(params, cfg))
+        nr = {k: (st.neural_renderer_state_dict(p), dataclasses.asdict(c))
+              for k, (p, c) in (hs or {}).items()}
+        gen = st.write_generator(root, os.path.join(tmp, f"ref_{name}"),
+                                 model, sd, st.field_attrs(cfg), ema=sd,
+                                 ema2=sd, heads=nr, wrapper=wrapper)
+        jobs[name] = (gen, os.path.join(tmp, f"converted_{name}.npz"))
+    t_write = time.perf_counter() - t0
+    t_cli = _convert_clis(jobs, root)
+    leaves = {}
+    for name, (_, params, _, _, hs, _, _) in cases.items():
+        trees = {"params": params, "ema": params, "ema2": params}
+        trees.update({k: p for k, (p, _) in (hs or {}).items()})
+        leaves[name] = _leaves_equal(jobs[name][1], trees)
+    launches, ms = {}, {}
+    with ray_kernels("auto"):
+        for name, (*_, direct, argv) in cases.items():
+            out = {}
+            for which, path in (("converted", jobs[name][1]),
+                                ("direct", direct)):
+                out[which] = os.path.join(tmp, f"sheet_{name}_{which}")
+                zero_counts()
+                t1 = time.perf_counter()
+                render_multiview.main(["--ckpt", path, "--seeds",
+                                       CONVERT_SEED, "--output_dir",
+                                       out[which]] + argv)
+                if which == "converted":
+                    ms[name] = (time.perf_counter() - t1) * 1e3
+                    counts, plain = read_counts()
+                    if plain:
+                        raise AssertionError(f"[convert] {name}: {plain} "
+                                             "plain-version calls")
+                    launches[name] = {k: v for k, v in counts.items() if v}
+            names = _sheets_equal(out["converted"], out["direct"])
+            log(f"[convert] {name}: {leaves[name]} leaves bit-equal to the "
+                f"written params; {' '.join(['render_multiview'] + argv)}: "
+                f"sheets {names} of the converted .npz equal to the direct "
+                f"one's, byte for byte ({ms[name]:.0f} ms for the converted "
+                f"one, CLI start included); launches {launches[name]}")
+    need = {"film": ("film_mlp", "ray_resample", "ray_finalize"),
+            "grid": ("ray_resample", "ray_finalize"),
+            "hd": ("film_mlp", "ray_resample", "ray_finalize")}
+    for name, kernels in need.items():
+        if not all(launches[name].get(k, 0) for k in kernels):
+            raise AssertionError(f"[convert] {name}: a kernel of the path "
+                                 f"was not launched: {launches[name]}")
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    log(f"[convert] pickles written in {t_write:.1f} s (three generators, "
+        f"each with ema.pth and ema2.pth), the three CLIs in {t_cli:.1f} s "
+        f"(together)")
+    return {"launches": total, "cli_s": t_cli}
+
+
+def _critic_check(dev) -> dict:
+    """The SPADE multiscale patch critic at the JAX defaults (input_nc 22,
+    ndf 64, n_layers 3, num_d 3) on a batch of 4 at 256^2: every feature
+    map on the card against the CPU's (f32, CRITIC_TOL of its largest
+    magnitude), CRITIC_CALLS state-threaded calls' u against the CPU's,
+    ms per call on both."""
+    from fenerf_tpu_torch.compat.jax_bridge import tree_leaves, tree_map
+    from fenerf_tpu_torch.nn import discriminators as d
+
+    cpu = d.init_multiscale_discriminator(torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                    else t, cpu)
+    x = torch.from_numpy(np.random.RandomState(0).standard_normal(
+        (CRITIC_BATCH, 22, CRITIC_SIZE, CRITIC_SIZE)).astype(np.float32))
+    xd = x.to(dev)
+    with torch.no_grad():
+        got = tree_leaves(d.apply_multiscale_discriminator(card, xd))
+        t0 = time.perf_counter()
+        ref = tree_leaves(d.apply_multiscale_discriminator(cpu, x))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        err = max(float((g.cpu() - r).abs().max() / r.abs().max())
+                  for g, r in zip(got, ref))
+        pc, pd = cpu, card
+        for _ in range(CRITIC_CALLS):
+            _, pc = d.apply_multiscale_discriminator(pc, x, return_state=True)
+            _, pd = d.apply_multiscale_discriminator(pd, xd,
+                                                     return_state=True)
+        u_err = max(float((lc["u"] - ld["u"].cpu()).abs().max())
+                    for sc, sd in zip(pc["scales"], pd["scales"])
+                    for lc, ld in zip(sc["layers"], sd["layers"])
+                    if lc["sn"])
+        ms = time_ms(lambda: d.apply_multiscale_discriminator(card, xd),
+                     iters=10)
+    log(f"[convert] SPADE multiscale critic (22 -> 64 ch, 3 layers, 3 "
+        f"scales) on {CRITIC_BATCH} x {CRITIC_SIZE}^2: {len(got)} feature "
+        f"maps card vs CPU max|diff|/max {err:.2e} (tol {CRITIC_TOL}); u "
+        f"after {CRITIC_CALLS} state-threaded calls max|diff| {u_err:.2e} "
+        f"(tol {CRITIC_U_TOL}); {ms:.3f} ms per call on the card (CUDA "
+        f"events, 10 calls), {cpu_ms:.0f} ms on the CPU")
+    if not (err <= CRITIC_TOL and u_err <= CRITIC_U_TOL):
+        raise AssertionError(f"[convert] the critic: {err}, u {u_err}")
+    return {"ms": ms, "err": err, "u_err": u_err}
+
+
+def _align_check(tmp, dev) -> dict:
+    """align_face on a seeded synthetic 1024^2 photo whose landmarks take
+    the shrink, crop and pad branches (the port's PIL-exact LANCZOS and
+    QUAD, no PIL), then prepare_segmaps' BiSeNet on the card on the aligned
+    face with stand-in weights."""
+    from fenerf_tpu_torch.apps import prepare_segmaps
+    from fenerf_tpu_torch.nn import bisenet
+    from fenerf_tpu_torch.utils import align
+    from fenerf_tpu_torch.utils.image import read_png, resize, save_png
+
+    rng = np.random.RandomState(0)
+    img = resize(rng.randint(0, 256, (64, 64, 3)).astype(np.uint8),
+                 (ALIGN_SIZE, ALIGN_SIZE), "bilinear")
+    cx, cy, eye, mouth = ALIGN_EYES
+    lm = rng.uniform(-3, 3, (68, 2)) + [cx, cy]
+    lm[36:42] = [cx - eye / 2, cy] + rng.uniform(-2, 2, (6, 2))
+    lm[42:48] = [cx + eye / 2, cy] + rng.uniform(-2, 2, (6, 2))
+    lm[48] = [cx - eye / 3, cy + mouth]
+    lm[54] = [cx + eye / 3, cy + mouth]
+    _, qsize = align.alignment_quad(lm)
+    shrink = int(np.floor(qsize / 256 * 0.5))
+    t0 = time.perf_counter()
+    face = align.align_face(img, lm)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if not (face.shape == (256, 256, 3) and face.dtype == np.uint8
+            and face.std() > 1.0):
+        raise AssertionError(f"[convert] align_face gave {face.shape} "
+                             f"{face.dtype}, std {face.std():.2f}")
+    pil = "PIL" in sys.modules
+    photos = os.path.join(tmp, "aligned")
+    os.makedirs(photos)
+    save_png(os.path.join(photos, "face.png"), face)
+    weights = os.path.join(tmp, "segNet-20Class-align.pth")
+    torch.save(bisenet.stand_in_state_dict(0), weights)
+    masks = os.path.join(tmp, "aligned_masks")
+    res = prepare_segmaps.main(["--images", os.path.join(photos, "*.png"),
+                                "--weights", weights, "--size", "256",
+                                "--output_dir", masks,
+                                "--device", str(dev)])
+    parsed = read_png(os.path.join(masks, "face.png"))
+    log(f"[convert] align_face on a {ALIGN_SIZE}^2 photo (qsize "
+        f"{qsize:.0f}, shrink {shrink}): {host_ms:.1f} ms on the host, PIL "
+        f"imported: {pil}; prepare_segmaps' BiSeNet on {dev} parsed it to "
+        f"{parsed.shape} labels {np.unique(parsed).tolist()[:8]}... in "
+        f"{res['seconds']:.2f} s")
+    if shrink < 2 or pil or parsed.shape != (256, 256):
+        raise AssertionError("[convert] alignment: shrink, PIL or the map")
+    return {"host_ms": host_ms}
+
+
+def phase_convert(ckpt, grid_ckpt, tmp, dev) -> dict:
+    """13. Released checkpoints in the port: the converter on reference
+    pickles of the film, grid and HD checkpoints, rendered through the
+    field and ray kernels; the SPADE patch critics on the card; face
+    alignment without PIL before the parser."""
+    out = _convert_checkpoints(ckpt, grid_ckpt, tmp, dev)
+    out["critic"] = _critic_check(dev)
+    out["align"] = _align_check(tmp, dev)
+    return out
+
+
 def _children(pid: int) -> list[int]:
     """The processes whose parent is `pid`, zombies included (/proc)."""
     out = []
@@ -4188,6 +4495,9 @@ def run_phases(dev: torch.device) -> dict:
         edit = timed("edit loop", phase_edit_loop, ckpt, inv_ckpt, tmp, dev)
         # 12: the ray-parallel renders and the sharded lattices
         sharded = timed("sharded", phase_sharded, ckpt, grid_ckpt, tmp, dev)
+        # 13: reference checkpoints through the converter, the patch
+        # critics, face alignment
+        convert = timed("convert", phase_convert, ckpt, grid_ckpt, tmp, dev)
     timed("render", phase_render, dev)
     bwd = timed("backward", phase_backward, dev)
     # the backward at invert's shape (phase 5c) beside phase 7's shapes
@@ -4225,7 +4535,8 @@ def run_phases(dev: torch.device) -> dict:
         the path has no kernel, as the JAX trainer's has none), the
         edit loop (its face and score renders, its inversion, its HD
         sheets), the data-parallel step's two ranks and the CLI over NCCL
-        (ddp) and the sharded renders and CLIs (sharded)."""
+        (ddp), the sharded renders and CLIs (sharded) and the renders of
+        the converted reference checkpoints (convert)."""
         by_path = {"serve": sum(r["launches"][name] for r in serve.values()),
                    "train": (train_off["launches"][name]
                              + train_on["launches"][name]),
@@ -4243,7 +4554,8 @@ def run_phases(dev: torch.device) -> dict:
                    "edit": edit["launches"][name],
                    "ddp": (ddp["launches"].get(name, 0)
                            + ddp["launches_cli"].get(name, 0)),
-                   "sharded": sharded["launches"][name]}
+                   "sharded": sharded["launches"][name],
+                   "convert": convert["launches"].get(name, 0)}
         return {"launches": sum(by_path.values()),
                 **{f"launches_{k}": v for k, v in by_path.items()}}
 

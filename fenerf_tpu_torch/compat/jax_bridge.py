@@ -9,6 +9,10 @@ exactly that order, so reading and writing them is a plain copy; Linear
 weights keep their (in, out) layout. The latent-grid family's tree sorts
 the same way: color, color_head, map, sigma_head, style_gen, trunk, and
 inside style_gen conv1 before convs.
+
+Python int and bool leaves (the patch critics' per-layer `stride` and
+`sn`) are static structure, not parameters: both conversions carry them
+across as they are.
 """
 from __future__ import annotations
 
@@ -49,10 +53,18 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
 
 
+def _static(x) -> bool:
+    """A Python int or bool leaf (numpy and torch scalars are arrays)."""
+    return isinstance(x, (bool, int))
+
+
 def from_numpy_tree(tree: Any, device="cpu") -> Any:
     """JAX-layout numpy tree (e.g. jax.tree.map(np.asarray, params)) ->
-    the same tree of torch tensors on `device` (floats as float32)."""
+    the same tree of torch tensors on `device` (floats as float32);
+    Python int / bool leaves stay as they are."""
     def conv(x):
+        if _static(x):
+            return x
         t = torch.from_numpy(np.array(x, copy=True))
         return t.to(device=device,
                     dtype=torch.float32 if t.is_floating_point() else t.dtype)
@@ -60,8 +72,11 @@ def from_numpy_tree(tree: Any, device="cpu") -> Any:
 
 
 def to_numpy_tree(tree: Any) -> Any:
-    """Torch tree -> the same tree of numpy arrays (float32 for floats)."""
+    """Torch tree -> the same tree of numpy arrays (float32 for floats);
+    Python int / bool leaves stay as they are."""
     def conv(t):
+        if _static(t):
+            return t
         t = t.detach().cpu()
         if t.is_floating_point():
             t = t.to(torch.float32)

@@ -80,9 +80,9 @@ def sample_camera(n: int, h_stddev, v_stddev, h_mean, v_mean,
     normals truncated to [-2, 2]; for 'hybrid' they are (n, 2), the normal
     draw in column 0 and the uniform one in column 1, and cam_coin (a
     bool, one for the whole batch) picks the uniform branch (the
-    reference flips one coin per call). Mode None is the deterministic
-    mean, where h_mean / v_mean may be (n, 1) tensors (one pose per
-    micro-batched request)."""
+    reference flips one coin per call). Mode None, or any mode not named
+    above, is the deterministic mean, where h_mean / v_mean may be (n, 1)
+    tensors (one pose per micro-batched request)."""
     shape = (n, 1)
     if mode == "uniform":
         theta = (cam_h - 0.5) * 2 * h_stddev + h_mean
@@ -103,13 +103,13 @@ def sample_camera(n: int, h_stddev, v_stddev, h_mean, v_mean,
         v_std, v_mn = v_stddev / math.pi, v_mean / math.pi
         v = ((cam_v - 0.5) * 2 * v_std + v_mn).clamp(1e-5, 1 - 1e-5)
         phi = torch.arccos(1 - 2 * v)
-    elif mode is None:
+    else:
+        # None or an unknown mode: the deterministic mean (the reference's
+        # else branch)
         theta = torch.as_tensor(h_mean, dtype=torch.float32,
                                 device=device).expand(shape)
         phi = torch.as_tensor(v_mean, dtype=torch.float32,
                               device=device).expand(shape)
-    else:
-        raise ValueError(f"unknown camera mode {mode!r}")
     phi = phi.clamp(1e-5, math.pi - 1e-5)
     sin_phi = torch.sin(phi)
     origin = torch.cat([r * sin_phi * torch.cos(theta), r * torch.cos(phi),

@@ -6,7 +6,8 @@ The reference inversion uses lpips.PerceptualLoss('net-lin', 'vgg')
 same .npz as the JAX package's, named by $FENERF_LPIPS_WEIGHTS: VGG16 conv
 kernels in HWIO (turned to OIHW here) and biases, and the five linear heads
 as (1, 1, C, 1). The .npz is written once from the lpips distribution by
-the JAX package's converter, fenerf_tpu/eval/lpips.py::convert_torch_lpips.
+convert_torch_lpips below (the JAX package's converter writes the same
+file).
 With no weights present, load_lpips() returns None and the caller decides
 whether the perceptual term may be dropped.
 """
@@ -89,3 +90,22 @@ def load_lpips(path: str | None = None, device="cuda"):
 
     return fn
 
+
+def convert_torch_lpips(lpips_module, out_path: str) -> None:
+    """One-time converter: a torch lpips.LPIPS(net='vgg') module -> the
+    .npz load_lpips reads (run wherever the lpips package and its weights
+    exist): conv{i}_w HWIO and conv{i}_b in the VGG's layer order,
+    lin{i}_w (1, 1, C, 1)."""
+    sd = lpips_module.state_dict()
+    arr = lambda t: t.detach().cpu().numpy()
+    arrays = {}
+    conv_keys = [k for k in sd
+                 if k.startswith("net.slice") and k.endswith(".weight")]
+    conv_keys.sort(key=lambda k: int(k.split(".")[2]))
+    for i, k in enumerate(conv_keys):
+        arrays[f"conv{i}_w"] = arr(sd[k]).transpose(2, 3, 1, 0)
+        arrays[f"conv{i}_b"] = arr(sd[k.replace("weight", "bias")])
+    for i in range(5):
+        w = arr(sd[f"lins.{i}.model.1.weight"])   # (1, C, 1, 1)
+        arrays[f"lin{i}_w"] = w.transpose(2, 3, 1, 0)
+    np.savez(out_path, **arrays)

@@ -132,9 +132,8 @@ def draw_render(gen: torch.Generator, batch: int, rcfg: RenderConfig,
     jitter = (torch.rand(shape, generator=gen, device=device)
               if rcfg.perturb else None)
     cam_h = cam_v = coin = None
+    # an unknown mode renders the mean pose and draws nothing
     kind = raylib.CAMERA_DRAWS.get(camera_mode) if camera_mode else None
-    if camera_mode and kind is None:
-        raise ValueError(f"unknown camera mode {camera_mode!r}")
     if kind == "hybrid":
         # the normal pair, the uniform pair and one coin for the batch
         normal = [torch.randn((batch, 1), generator=gen, device=device)

@@ -22,6 +22,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -133,3 +134,55 @@ def apply_neural_renderer(params: Params, cfg: NeuralRendererConfig,
     if cfg.final_actvn:
         rgb = torch.sigmoid(rgb)
     return rgb
+
+
+def config_from_torch_module(tm) -> NeuralRendererConfig:
+    """A NeuralRendererConfig from an unpickled reference NeuralRenderer
+    module (released generator pickles embed these as
+    .neural_renderer_img / _seg). img_size / input_size are stored only as
+    their ratio (n_blocks): the absolute values are free."""
+    convs = list(tm.conv_layers)
+    n_blocks = len(convs)
+    use_rgb_skip = bool(tm.use_rgb_skip)
+    out_dim = (tm.conv_rgb[0].out_channels if use_rgb_skip
+               else tm.conv_rgb.out_channels)
+    return NeuralRendererConfig(
+        n_feat=convs[0].in_channels,
+        input_dim=int(tm.input_dim),
+        out_dim=int(out_dim),
+        final_actvn=bool(tm.final_actvn),
+        min_feat=convs[-1].out_channels,
+        img_size=16 * 2 ** n_blocks,
+        input_size=16,
+        use_rgb_skip=use_rgb_skip,
+        # bilinear upsamplers are Sequential(Upsample, Blur); nn is a bare
+        # Upsample (no submodules)
+        upsample_feat="bilinear" if list(tm.upsample_2.children()) else "nn",
+        upsample_rgb="bilinear" if list(tm.upsample_rgb.children()) else "nn",
+        use_norm=bool(tm.use_norm),
+    )
+
+
+def neural_renderer_from_torch(sd, cfg: NeuralRendererConfig,
+                               device="cpu") -> Params:
+    """A reference NeuralRenderer's state_dict -> its parameter tree
+    (float32 on `device`; HWIO convs, a layout translation only)."""
+    def t(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x))
+        return x.detach().to(device=device, dtype=torch.float32)
+
+    def conv(prefix):
+        return {"w": t(sd[f"{prefix}.weight"]).permute(2, 3, 1, 0)
+                .contiguous(), "b": t(sd[f"{prefix}.bias"])}
+
+    params: dict[str, Any] = {}
+    if "conv_in.weight" in sd:
+        params["conv_in"] = conv("conv_in")
+    params["convs"] = [conv(f"conv_layers.{i}") for i in range(cfg.n_blocks)]
+    if cfg.use_rgb_skip:
+        params["rgbs"] = [conv(f"conv_rgb.{i}")
+                          for i in range(cfg.n_blocks + 1)]
+    else:
+        params["rgb_out"] = conv("conv_rgb")
+    return params

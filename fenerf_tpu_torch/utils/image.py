@@ -275,14 +275,39 @@ def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
     return idx
 
 
+def _triangle(x: float) -> float:
+    """PIL's bilinear filter."""
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    """PIL's Lanczos filter: sinc truncated to [-3, 3) by sinc(x / 3)."""
+    if -3.0 <= x < 3.0:
+        return _sinc(x) * _sinc(x / 3.0)
+    return 0.0
+
+
+# PIL's resampling filters and their supports
+_FILTERS = {"bilinear": (_triangle, 1.0), "lanczos": (_lanczos, 3.0)}
+
+
 @functools.lru_cache(maxsize=None)
-def _bilinear_coeffs(n_in: int, n_out: int):
-    """PIL's precompute_coeffs for the bilinear (triangle) filter, in its
-    fixed point: -> (first source index (n_out,), int64 weights
-    (n_out, k)). The support widens by the scale factor when downscaling."""
+def _coeffs(n_in: int, n_out: int, method: str):
+    """PIL's precompute_coeffs for a filter of _FILTERS, in its fixed
+    point: -> (first source index (n_out,), int64 weights (n_out, k)).
+    The support widens by the scale factor when downscaling."""
+    fn, base = _FILTERS[method]
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = base * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     first = np.zeros(n_out, np.int64)
     kk = np.zeros((n_out, ksize), np.int64)
@@ -291,10 +316,7 @@ def _bilinear_coeffs(n_in: int, n_out: int):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), n_in) - xmin
-        ws = []
-        for x in range(xmax):
-            t = abs((x + xmin - center + 0.5) * ss)
-            ws.append(1.0 - t if t < 1.0 else 0.0)
+        ws = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = 0.0
         for w in ws:
             ww += w
@@ -307,12 +329,13 @@ def _bilinear_coeffs(n_in: int, n_out: int):
     return first, kk
 
 
-def _bilinear_pass(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+def _resample_pass(img: np.ndarray, n_out: int, axis: int,
+                   method: str) -> np.ndarray:
     """One of PIL's two 8-bit passes along `axis`: the fixed-point
     weighted sum, rounded by adding half and shifting, clipped to uint8."""
     n_in = img.shape[axis]
-    first, kk = _bilinear_coeffs(n_in, n_out)
-    # int32 holds every sum: 255 * (sum of a row's weights, ~2^22) + 2^21
+    first, kk = _coeffs(n_in, n_out, method)
+    # int32 holds every sum: 255 * (sum of a row's |weights|, ~2^22) + 2^21
     assert 255 * int(np.abs(kk).sum(axis=1).max()) + (1 << 21) < 2 ** 31
     # the resized axis first and contiguous: each tap gathers whole rows
     src = np.ascontiguousarray(np.moveaxis(img, axis, 0), dtype=np.int32)
@@ -333,10 +356,10 @@ def _bilinear_pass(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
 
 def resize(img: np.ndarray, size: tuple, method: str = "bilinear"
            ) -> np.ndarray:
-    """PIL's Image.resize((w, h), NEAREST | BILINEAR) on an (H, W) or
-    (H, W, C) uint8 array, channel by channel. BILINEAR runs the
-    horizontal pass, then the vertical one, each rounded to uint8, as
-    PIL does."""
+    """PIL's Image.resize((w, h), NEAREST | BILINEAR | LANCZOS) on an
+    (H, W) or (H, W, C) uint8 array, channel by channel. BILINEAR and
+    LANCZOS run the horizontal pass, then the vertical one, each rounded
+    to uint8, as PIL does."""
     img = np.asarray(img, np.uint8)
     w, h = size
     if (h, w) == img.shape[:2]:
@@ -344,10 +367,54 @@ def resize(img: np.ndarray, size: tuple, method: str = "bilinear"
     if method == "nearest":
         return img[_nearest_index(img.shape[0], h)][
             :, _nearest_index(img.shape[1], w)]
-    if method != "bilinear":
+    if method not in _FILTERS:
         raise ValueError(f"unknown resize method {method!r}")
     if w != img.shape[1]:
-        img = _bilinear_pass(img, w, 1)
+        img = _resample_pass(img, w, 1, method)
     if h != img.shape[0]:
-        img = _bilinear_pass(img, h, 0)
+        img = _resample_pass(img, h, 0, method)
     return img
+
+
+def quad_transform(img: np.ndarray, size: tuple, data) -> np.ndarray:
+    """PIL's Image.transform((w, h), QUAD, data, BILINEAR) on an (H, W) or
+    (H, W, C) uint8 array. data holds the source quad's corners NW, SW, SE,
+    NE as 8 numbers; each output pixel centre maps bilinearly into it
+    (PIL's coefficients and sum order, in float64). A source point outside
+    the image gives 0; inside, PIL's bilinear filter samples the pixel
+    centres around it, the columns and the first row clamped to the image,
+    a second row below the last repeating the first, and truncates the
+    result to uint8."""
+    img = np.asarray(img, np.uint8)
+    w, h = size
+    x0, y0, swx, swy, sex, sey, nex, ney = (float(v) for v in data)
+    a_s, a_t = 1.0 / w, 1.0 / h
+    a = (x0, (nex - x0) * a_s, (swx - x0) * a_t,
+         (sex - swx - nex + x0) * a_s * a_t,
+         y0, (ney - y0) * a_s, (swy - y0) * a_t,
+         (sey - swy - ney + y0) * a_s * a_t)
+    xin = np.arange(w, dtype=np.float64)[None, :] + 0.5
+    yin = np.arange(h, dtype=np.float64)[:, None] + 0.5
+    xs = a[0] + a[1] * xin + a[2] * yin + a[3] * xin * yin
+    ys = a[4] + a[5] * xin + a[6] * yin + a[7] * xin * yin
+    hi, wi = img.shape[:2]
+    inside = (xs >= 0.0) & (xs < wi) & (ys >= 0.0) & (ys < hi)
+    xs = np.where(inside, xs, 0.5) - 0.5
+    ys = np.where(inside, ys, 0.5) - 0.5
+    xf, yf = np.floor(xs), np.floor(ys)
+    dx, dy = xs - xf, ys - yf
+    x, y = xf.astype(np.int64), yf.astype(np.int64)
+    c0, c1 = np.clip(x, 0, wi - 1), np.clip(x + 1, 0, wi - 1)
+    r0 = np.clip(y, 0, hi - 1)
+    below = (y + 1 >= 0) & (y + 1 < hi)
+    r1 = np.where(below, y + 1, r0)
+    src = img.astype(np.float64)
+    if src.ndim == 3:
+        dx, dy = dx[..., None], dy[..., None]
+        inside = inside[..., None]
+    a0, a1 = src[r0, c0], src[r0, c1]
+    v1 = a0 + (a1 - a0) * dx
+    b0, b1 = src[r1, c0], src[r1, c1]
+    v2 = b0 + (b1 - b0) * dx
+    v = v1 + (v2 - v1) * dy
+    return np.where(inside, v, 0.0).astype(np.uint8)

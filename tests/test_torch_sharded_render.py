@@ -239,7 +239,7 @@ def test_camera_modes_match_jax(mode, seed):
 def test_camera_mode_draws():
     """The draws of each mode: hybrid's normal and uniform columns and one
     coin for the batch; truncated normals inside [-2, 2]; a render in each
-    mode; an unknown mode raises."""
+    mode; an unknown mode draws nothing and gives the mean pose."""
     rcfg = tgen.RenderConfig(img_size=8, num_steps=4, hierarchical=False)
     g = torch.Generator().manual_seed(0)
     d = tgen.draw_render(g, 4096, rcfg, 0.0, "hybrid")
@@ -260,10 +260,12 @@ def test_camera_mode_draws():
                                3, generator=torch.Generator().manual_seed(1))
         assert out["position"].shape == (3, 2)
         assert torch.isfinite(out["pixels"]).all()
-    with pytest.raises(ValueError, match="unknown camera mode"):
-        tgen.draw_render(g, 2, rcfg, 0.0, "spiral")
-    with pytest.raises(ValueError, match="unknown camera mode"):
-        trays.sample_camera(2, mode="spiral", **CAM)
+    # an unknown mode draws nothing and takes the mean pose
+    d = tgen.draw_render(g, 2, rcfg, 0.0, "spiral")
+    assert d.cam_h is None and d.cam_v is None and d.cam_coin is None
+    for a, b in zip(trays.sample_camera(2, mode="spiral", **CAM),
+                    trays.sample_camera(2, mode=None, **CAM)):
+        assert torch.equal(a, b)
 
 
 def test_extract_shapes_leaves_tf32_flag(tmp_path):
