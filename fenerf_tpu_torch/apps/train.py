@@ -90,7 +90,9 @@ def main(argv=None):
                         '{"batch_size": 4, "img_size": 16} (debug runs)')
     p.add_argument("--profile_steps", default="",
                    help="'start:stop' step range to trace with "
-                        "torch.profiler into <output_dir>/profile")
+                        "torch.profiler into <output_dir>/profile "
+                        "(trace.json; spans.json, the program spans' "
+                        "totals)")
     p.add_argument("--multihost", action="store_true",
                    help="join a process group from torchrun's environment "
                         "(MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, "

@@ -39,6 +39,7 @@ from fenerf_tpu_torch.core import rays as raylib
 from fenerf_tpu_torch.nn import fields
 from fenerf_tpu_torch.nn import latent_grid_field as lgf
 from fenerf_tpu_torch.nn.neural_renderer import apply_neural_renderer
+from fenerf_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +197,7 @@ def _shade_rays(field_fn, output_dim, rcfg, origins, dirs, z_vals,
     before fill, depth and total opacity."""
     b, _, s = z_vals.shape
 
-    def eval_pts(pts, drs):
+    def run_field(pts, drs):
         rb = pts.shape[1]
         out = field_fn(pts.reshape(b, rb * s, 3), drs.reshape(b, rb * s, 3))
         return out.reshape(b, rb, s, output_dim)
@@ -205,11 +206,17 @@ def _shade_rays(field_fn, output_dim, rcfg, origins, dirs, z_vals,
             and torch.is_grad_enabled()):
         # keep only the field's inputs for the backward; the kernel route
         # already saves only its inputs
-        plain_eval = eval_pts
+        plain_field = run_field
 
-        def eval_pts(pts, drs):
+        def run_field(pts, drs):
             return torch.utils.checkpoint.checkpoint(
-                plain_eval, pts, drs, use_reentrant=False)
+                plain_field, pts, drs, use_reentrant=False)
+
+    # the span outside the checkpoint: a backward's recompute is not one of
+    # the render's field calls
+    def eval_pts(pts, drs):
+        with span("fenerf/render/field", rows=b * pts.shape[1] * s):
+            return run_field(pts, drs)
 
     points = origins[:, :, None, :] + dirs[:, :, None, :] * z_vals[..., None]
     dirs_exp = dirs[:, :, None, :].expand(points.shape)
@@ -443,65 +450,66 @@ def render_core(field_fn, output_dim: int, rcfg: RenderConfig,
     (B, H, W) and position (B, 2) = sampled (pitch, yaw); with
     rcfg.grad_rays < 1 also grad_ray_mask (H, W), True where a pixel
     carries gradients."""
-    if camera is not None:
-        pitch, yaw, fov = camera
-        h_mean, v_mean = yaw, pitch
-        h_stddev = v_stddev = 0.0
-        sample_dist = None
-    else:
-        fov = rcfg.fov
-        h_mean, v_mean = rcfg.h_mean, rcfg.v_mean
-        h_stddev, v_stddev = rcfg.h_stddev, rcfg.v_stddev
-        sample_dist = rcfg.sample_dist
-    if devices:
-        devices = [torch.device(d) for d in devices]
-        device = devices[0]
-        if rcfg.img_size % len(devices):
-            raise ValueError(f"img_size {rcfg.img_size} is not divisible "
-                             f"into {len(devices)} strips")
-        if rcfg.grad_rays < 1.0:
-            raise ValueError("ray-parallel renders take no grad_rays")
-    if draws is None:
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        draws = draw_render(generator, batch_size, rcfg, noise_std,
-                            sample_dist, device)
+    with span("fenerf/render"):
+        if camera is not None:
+            pitch, yaw, fov = camera
+            h_mean, v_mean = yaw, pitch
+            h_stddev = v_stddev = 0.0
+            sample_dist = None
+        else:
+            fov = rcfg.fov
+            h_mean, v_mean = rcfg.h_mean, rcfg.v_mean
+            h_stddev, v_stddev = rcfg.h_stddev, rcfg.v_stddev
+            sample_dist = rcfg.sample_dist
+        if devices:
+            devices = [torch.device(d) for d in devices]
+            device = devices[0]
+            if rcfg.img_size % len(devices):
+                raise ValueError(f"img_size {rcfg.img_size} is not divisible "
+                                 f"into {len(devices)} strips")
+            if rcfg.grad_rays < 1.0:
+                raise ValueError("ray-parallel renders take no grad_rays")
+        if draws is None:
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            draws = draw_render(generator, batch_size, rcfg, noise_std,
+                                sample_dist, device)
 
-    dirs_cam = raylib.pixel_ray_dirs(rcfg.img_size, fov, device)
-    z0 = raylib.initial_z_vals(rcfg.num_steps, rcfg.ray_start, rcfg.ray_end,
-                               device)
-    tr = raylib.transform_rays(
-        batch_size, dirs_cam, z0, h_stddev, v_stddev, h_mean, v_mean,
-        mode=sample_dist, jitter=draws.jitter if rcfg.perturb else None,
-        cam_h=draws.cam_h, cam_v=draws.cam_v, cam_coin=draws.cam_coin)
-    grad_mask = None
-    if rcfg.grad_rays < 1.0:
-        if draws.ray_perm is None:
-            raise ValueError("grad_rays < 1 needs draws.ray_perm")
-        comp, depth, weights_sum, grad_mask = _shade_grad_subset(
-            field_fn, output_dim, rcfg, draws.ray_perm, tr.ray_origins,
-            tr.ray_dirs, tr.z_vals, draws.noise, noise_std)
-    elif devices:
-        comp, depth, weights_sum = _shade_strips(
-            field_fn, output_dim, rcfg, tr.ray_origins, tr.ray_dirs,
-            tr.z_vals, draws.noise, noise_std, devices)
-    else:
-        comp, depth, weights_sum = _shade_chunked(
-            field_fn, output_dim, rcfg, tr.ray_origins, tr.ray_dirs,
-            tr.z_vals, draws.noise, noise_std)
-    comp = _finalize_comp(comp, weights_sum, rcfg)
-    hw = rcfg.img_size
-    pixels = (comp.reshape(batch_size, hw, hw, -1).permute(0, 3, 1, 2)
-              * 2.0 - 1.0)
-    out = {
-        "pixels": pixels,
-        "depth": depth.reshape(batch_size, hw, hw),
-        "opacity": weights_sum.reshape(batch_size, hw, hw),
-        "position": torch.cat([tr.pitch, tr.yaw], dim=-1),
-    }
-    if grad_mask is not None:
-        out["grad_ray_mask"] = grad_mask.reshape(hw, hw)
-    return out
+        dirs_cam = raylib.pixel_ray_dirs(rcfg.img_size, fov, device)
+        z0 = raylib.initial_z_vals(rcfg.num_steps, rcfg.ray_start,
+                                   rcfg.ray_end, device)
+        tr = raylib.transform_rays(
+            batch_size, dirs_cam, z0, h_stddev, v_stddev, h_mean, v_mean,
+            mode=sample_dist, jitter=draws.jitter if rcfg.perturb else None,
+            cam_h=draws.cam_h, cam_v=draws.cam_v, cam_coin=draws.cam_coin)
+        grad_mask = None
+        if rcfg.grad_rays < 1.0:
+            if draws.ray_perm is None:
+                raise ValueError("grad_rays < 1 needs draws.ray_perm")
+            comp, depth, weights_sum, grad_mask = _shade_grad_subset(
+                field_fn, output_dim, rcfg, draws.ray_perm, tr.ray_origins,
+                tr.ray_dirs, tr.z_vals, draws.noise, noise_std)
+        elif devices:
+            comp, depth, weights_sum = _shade_strips(
+                field_fn, output_dim, rcfg, tr.ray_origins, tr.ray_dirs,
+                tr.z_vals, draws.noise, noise_std, devices)
+        else:
+            comp, depth, weights_sum = _shade_chunked(
+                field_fn, output_dim, rcfg, tr.ray_origins, tr.ray_dirs,
+                tr.z_vals, draws.noise, noise_std)
+        comp = _finalize_comp(comp, weights_sum, rcfg)
+        hw = rcfg.img_size
+        pixels = (comp.reshape(batch_size, hw, hw, -1).permute(0, 3, 1, 2)
+                  * 2.0 - 1.0)
+        out = {
+            "pixels": pixels,
+            "depth": depth.reshape(batch_size, hw, hw),
+            "opacity": weights_sum.reshape(batch_size, hw, hw),
+            "position": torch.cat([tr.pitch, tr.yaw], dim=-1),
+        }
+        if grad_mask is not None:
+            out["grad_ray_mask"] = grad_mask.reshape(hw, hw)
+        return out
 
 
 def render(params, fcfg: fields.FieldConfig, rcfg: RenderConfig, film_geo,

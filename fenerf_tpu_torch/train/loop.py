@@ -64,6 +64,7 @@ from fenerf_tpu_torch.train.diff_augment import (diff_augment,
                                                  make_augment_draws)
 from fenerf_tpu_torch.train.curriculum import StageMeta
 from fenerf_tpu_torch.utils.precision import exact_convs
+from fenerf_tpu_torch.utils.profiling import span
 
 Params = Any
 
@@ -485,70 +486,78 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
     metrics = {}
 
     # ---------------- D_img ----------------
-    zg, za = draws.z_img
-    fake_pix, fake_pos, opacity = _render_fakes(
-        render_params, fcfg, rcfg, zg, za, draws.fakes_img, scal.noise_std)
-    metrics["fake_opacity"] = opacity / world
-    d = _leaf_copy(state.d_img_params)
-    # the critics' convolutions exact in every direction: forward, backward
-    # and R1's double backward inside one `with`; every term of the loss is
-    # a mean over this rank's examples
-    with exact_convs(deterministic=False):
-        loss = _d_loss(d, meta.disc_img_config(), meta,
-                       aug(real_imgs, aug_real), aug(fake_pix[:, -3:]), zg,
-                       za, fake_pos, scal.alpha) / world
-        grads = sum_tree(_grads(loss, d))
-    opt_img = make_d_optimizer(meta, "img").step(
-        state.d_img_params, grads, state.opt_img)
-    metrics["d_img_loss"] = loss.detach()
+    with span("fenerf/train/d_img"):
+        zg, za = draws.z_img
+        fake_pix, fake_pos, opacity = _render_fakes(
+            render_params, fcfg, rcfg, zg, za, draws.fakes_img,
+            scal.noise_std)
+        metrics["fake_opacity"] = opacity / world
+        d = _leaf_copy(state.d_img_params)
+        # the critics' convolutions exact in every direction: forward,
+        # backward and R1's double backward inside one `with`; every term of
+        # the loss is a mean over this rank's examples
+        with exact_convs(deterministic=False):
+            loss = _d_loss(d, meta.disc_img_config(), meta,
+                           aug(real_imgs, aug_real), aug(fake_pix[:, -3:]),
+                           zg, za, fake_pos, scal.alpha) / world
+            grads = sum_tree(_grads(loss, d))
+        opt_img = make_d_optimizer(meta, "img").step(
+            state.d_img_params, grads, state.opt_img)
+        metrics["d_img_loss"] = loss.detach()
 
     # ---------------- D_seg ----------------
     opt_seg = state.opt_seg
     metrics["d_seg_loss"] = torch.zeros((), device=dev)
     if has_seg:
-        zg, za = draws.z_seg
-        fake_pix, fake_pos, _ = _render_fakes(
-            render_params, fcfg, rcfg, zg, za, draws.fakes_seg,
-            scal.noise_std)
-        d = _leaf_copy(state.d_seg_params)
-        with exact_convs(deterministic=False):
-            loss = _d_loss(d, meta.disc_seg_config(), meta,
-                           torch.cat([real_labels, real_imgs], dim=1),
-                           fake_pix, zg, za, fake_pos, scal.alpha) / world
-            grads = sum_tree(_grads(loss, d))
-        opt_seg = make_d_optimizer(meta, "seg").step(
-            state.d_seg_params, grads, state.opt_seg)
-        metrics["d_seg_loss"] = loss.detach()
+        with span("fenerf/train/d_seg"):
+            zg, za = draws.z_seg
+            fake_pix, fake_pos, _ = _render_fakes(
+                render_params, fcfg, rcfg, zg, za, draws.fakes_seg,
+                scal.noise_std)
+            d = _leaf_copy(state.d_seg_params)
+            with exact_convs(deterministic=False):
+                loss = _d_loss(d, meta.disc_seg_config(), meta,
+                               torch.cat([real_labels, real_imgs], dim=1),
+                               fake_pix, zg, za, fake_pos,
+                               scal.alpha) / world
+                grads = sum_tree(_grads(loss, d))
+            opt_seg = make_d_optimizer(meta, "seg").step(
+                state.d_seg_params, grads, state.opt_seg)
+            metrics["d_seg_loss"] = loss.detach()
 
     # ---------------- G ----------------
-    zg, za = draws.z_g
-    n = len(draws.g_renders)
-    bs = b // n
-    g_grads = None
-    g_loss = g_img = g_seg = 0.0
-    for i in range(n):
-        rp = _leaf_copy(render_params)
-        sl = slice(i * bs, (i + 1) * bs)
-        with exact_convs(deterministic=False):
-            loss, (li, ls) = _g_loss(
-                rp, state.d_img_params, state.d_seg_params, fcfg, g_rcfg,
-                meta, zg[sl], za[sl], scal, s if n == 1 else 1,
-                draws.g_renders[i], draws.aug_g[i] if policy else None,
-                group)
-            grads = _grads(loss, rp)
-        # f32 accumulation over microbatches (the table's cotangent too)
-        g_grads = grads if g_grads is None else tree_unflatten(grads, [
-            a + c for a, c in zip(tree_leaves(g_grads), tree_leaves(grads))])
-        g_loss, g_img, g_seg = (g_loss + loss.detach(), g_img + li.detach(),
-                                g_seg + ls.detach())
-    if use_table:
-        dtable = g_grads.pop(fields.GRID_TABLE_KEY)
-        g_grads["grid"] = g_grads["grid"] + zexp_table_adjoint(
-            dtable, tuple(state.g_params["grid"].shape))
-    # summed over the ranks after the fold: it is linear, and the grid's
-    # gradient is smaller than the table's
-    opt_g = make_g_optimizer(meta).step(state.g_params, sum_tree(g_grads),
-                                        state.opt_g)
+    with span("fenerf/train/g"):
+        zg, za = draws.z_g
+        n = len(draws.g_renders)
+        bs = b // n
+        g_grads = None
+        g_loss = g_img = g_seg = 0.0
+        for i in range(n):
+            rp = _leaf_copy(render_params)
+            sl = slice(i * bs, (i + 1) * bs)
+            with exact_convs(deterministic=False):
+                loss, (li, ls) = _g_loss(
+                    rp, state.d_img_params, state.d_seg_params, fcfg,
+                    g_rcfg, meta, zg[sl], za[sl], scal, s if n == 1 else 1,
+                    draws.g_renders[i], draws.aug_g[i] if policy else None,
+                    group)
+                grads = _grads(loss, rp)
+            # f32 accumulation over microbatches (the table's cotangent too)
+            g_grads = grads if g_grads is None else tree_unflatten(grads, [
+                a + c for a, c in zip(tree_leaves(g_grads),
+                                      tree_leaves(grads))])
+            g_loss, g_img, g_seg = (g_loss + loss.detach(),
+                                    g_img + li.detach(), g_seg + ls.detach())
+        if use_table:
+            dtable = g_grads.pop(fields.GRID_TABLE_KEY)
+            g_grads["grid"] = g_grads["grid"] + zexp_table_adjoint(
+                dtable, tuple(state.g_params["grid"].shape))
+        # summed over the ranks after the fold: it is linear, and the grid's
+        # gradient is smaller than the table's
+        opt_g = make_g_optimizer(meta).step(state.g_params,
+                                            sum_tree(g_grads), state.opt_g)
+        ema = emalib.ema_update(state.ema, state.g_params)
+        ema2 = emalib.ema_update(state.ema2, state.g_params)
     metrics.update(g_loss=g_loss, g_img_loss=g_img, g_seg_loss=g_seg)
     if world > 1:
         names = sorted(metrics)
@@ -560,7 +569,5 @@ def train_step(state: TrainState, real_imgs: torch.Tensor,
     new_state = TrainState(
         g_params=state.g_params, d_img_params=state.d_img_params,
         d_seg_params=state.d_seg_params, opt_g=opt_g, opt_img=opt_img,
-        opt_seg=opt_seg, ema=emalib.ema_update(state.ema, state.g_params),
-        ema2=emalib.ema_update(state.ema2, state.g_params),
-        step=state.step + 1)
+        opt_seg=opt_seg, ema=ema, ema2=ema2, step=state.step + 1)
     return new_state, metrics
