@@ -86,13 +86,19 @@ def test_supervisor_matches_jax(case, tmp_path):
         d.mkdir()
         runs[module] = (d, _start(module, d, _fake_trainer(d, body), extra))
     seen = {}
-    for module, (d, proc) in runs.items():
-        out, _ = proc.communicate(timeout=120)
-        ev = _events(d)
-        seen[module] = ([e["event"] for e in ev], proc.returncode,
-                        (d / "attempts.txt").read_text(),
-                        [e.get("rc") for e in ev if e["event"] == "exit"])
-        assert proc.returncode == rc, out
+    try:
+        for module, (d, proc) in runs.items():
+            out, _ = proc.communicate(timeout=120)
+            ev = _events(d)
+            seen[module] = ([e["event"] for e in ev], proc.returncode,
+                            (d / "attempts.txt").read_text(),
+                            [e.get("rc") for e in ev if e["event"] == "exit"])
+            assert proc.returncode == rc, out
+    finally:   # a failed assertion or a deadline leaves no child behind
+        for _, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     (jax_run, port_run) = seen.values()
     assert port_run == jax_run
     names, _, n, _ = port_run
