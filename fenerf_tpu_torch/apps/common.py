@@ -2,7 +2,8 @@
 interpolation for the port's apps (port of fenerf_tpu/apps/common.py).
 
 The checkpoint is the JAX package's `.npz`: `__config__` JSON (model,
-step, family "film" or "grid", field_kwargs, n_params / n_ema / n_ema2)
+step, family "film", "grid" or "eg3d" (the port's own: EG3D's tri-plane
+generator, nn/triplane_field.py), field_kwargs, n_params / n_ema / n_ema2)
 plus `params_{i}` / `ema_{i}` / `ema2_{i}` leaves in jax.tree_util order,
 and for an HD checkpoint the neural renderers' `nr_img_{i}` / `nr_seg_{i}`
 leaves with `nr_img_cfg` / `nr_seg_cfg` in the JSON.
@@ -24,6 +25,7 @@ from fenerf_tpu_torch.compat import jax_bridge
 from fenerf_tpu_torch.models import generator as genlib
 from fenerf_tpu_torch.nn import fields
 from fenerf_tpu_torch.nn import latent_grid_field as lgf
+from fenerf_tpu_torch.nn import triplane_field as tpf
 from fenerf_tpu_torch.nn.neural_renderer import (NeuralRendererConfig,
                                                  init_neural_renderer)
 from fenerf_tpu_torch.ops import film_mlp
@@ -42,6 +44,8 @@ def save_generator(path: str, params: Any, ema_params: Any, ema2_params: Any,
     the JAX package stores them; load_neural_renderers reads them."""
     if lgf.is_grid_model(model):
         family = "grid"
+    elif tpf.is_triplane_model(model):
+        family = "eg3d"
     elif model in fields.VARIANTS:
         family = "film"
     else:
@@ -75,8 +79,8 @@ def _template(cfg) -> Any:
 def load_generator(path: str, device="cuda"):
     """-> (params, ema_params, ema2_params, cfg, config dict) as tensors on
     `device` (the card unless asked; "cpu" loads for the torch route).
-    cfg is a FieldConfig (film family) or a GridFieldConfig (latent-grid
-    family); config["family"] says which."""
+    cfg is a FieldConfig (film family), a GridFieldConfig (latent-grid
+    family) or a TriPlaneConfig (eg3d); config["family"] says which."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass device='cpu' to load "

@@ -10,7 +10,11 @@ hierarchical machinery in the per-ray kernels (ops/ray_finalize.py). The
 latent-grid family renders RGB only (white background fill, no seg sheet)
 from z, without W truncation. --hd renders an *HD variant's features at
 image_size / the heads' upsampling and upsamples them with the
-checkpoint's neural renderers (models/generator.py::render_hd).
+checkpoint's neural renderers (models/generator.py::render_hd). An EG3D
+checkpoint (family "eg3d") renders each view at the model's neural
+rendering size (--image_size is not read), super-resolved, and its depth,
+conditioned on the front camera as EG3D's sampler conditions
+(models/generator.py::render_eg3d): img_{seed}.png and depth_{seed}.png.
 
 Usage:
   python -m fenerf_tpu_torch.apps.render_multiview --ckpt out/generator.npz \
@@ -86,6 +90,9 @@ def main(argv=None):
     is_grid = config["family"] == "grid"
     if is_grid and args.fill_mode == "seg_padding_background":
         args.fill_mode = "eval_white_back"   # the grid family is RGB-only
+
+    if config["family"] == "eg3d":
+        return _eg3d_sheets(args, params, fcfg, dev)
 
     nrs = {}
     render_size = args.image_size
@@ -193,6 +200,56 @@ def main(argv=None):
             print(f"seed {seed}: wrote {len(YAW_OFFSETS)} views in "
                   f"{ms:.1f} ms")
     # [(seed, (5, C, H, W) pixels in [-1, 1], ms for the sheet)]
+    return sheets
+
+
+def _eg3d_sheets(args, params, cfg, dev):
+    """The EG3D family's sheets: per seed, the 5 views' super-resolved
+    images and their depth (JET over the sample range), psi lerping w
+    toward the checkpoint's w_avg."""
+    import torch
+
+    from fenerf_tpu_torch.core import rays
+    from fenerf_tpu_torch.models import generator as gen
+    from fenerf_tpu_torch.utils.image import (depth_to_jet, make_grid,
+                                              save_png, to_uint8)
+
+    rcfg = gen.eg3d_render_config(
+        img_size=cfg.sr_in,
+        num_steps=args.num_steps * args.ray_step_multiplier,
+        ray_chunk=args.ray_chunk)
+    front = torch.full((1, 1), math.pi / 2, device=dev)
+    label = lambda yaw, pitch: rays.eg3d_label(
+        rays.lookat_cam2world(yaw, pitch), rays.eg3d_intrinsics(1,
+                                                                device=dev))
+    c = label(front, front)
+    sheets = []
+    with torch.no_grad():
+        for seed in args.seeds:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            z = torch.randn((1, cfg.z_dim), generator=g, device=dev)
+            t0 = time.perf_counter()
+            images, depths = [], []
+            for off in YAW_OFFSETS:
+                out = gen.render_eg3d(
+                    params, cfg, rcfg, z, c, camera=label(front + off, front),
+                    psi=args.psi,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+                images.append(out["image"][0].float().cpu().numpy())
+                depths.append(depth_to_jet(
+                    out["depth"][0].float().cpu().numpy(), rcfg.ray_start,
+                    rcfg.ray_end))
+            images = np.stack(images)
+            save_png(os.path.join(args.output_dir, f"img_{seed}.png"),
+                     make_grid(to_uint8(images, normalize=True)
+                               .transpose(0, 2, 3, 1),
+                               nrow=len(YAW_OFFSETS)))
+            save_png(os.path.join(args.output_dir, f"depth_{seed}.png"),
+                     make_grid(np.stack(depths), nrow=len(YAW_OFFSETS)))
+            ms = (time.perf_counter() - t0) * 1e3
+            sheets.append((seed, images, ms))
+            print(f"seed {seed}: wrote {len(YAW_OFFSETS)} views in "
+                  f"{ms:.1f} ms")
     return sheets
 
 

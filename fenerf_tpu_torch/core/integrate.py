@@ -190,3 +190,38 @@ def composite_merged_nosort(fine_out, coarse_out, fine_z, coarse_z,
     if black_back:
         comp = comp - (1.0 - weights_sum)[..., None]
     return Integrated(comp, depth, w, weights_sum)
+
+
+def mip_march(colors: torch.Tensor, sigmas: torch.Tensor,
+              z_vals: torch.Tensor):
+    """EG3D's MipRayMarcher2 on depth-sorted samples: colours (..., S, C),
+    raw densities and depths (..., S) taken at the S - 1 interval
+    midpoints, density softplus(sigma - 1), alpha = 1 - exp(-density *
+    delta), transmittance from (1 - alpha + 1e-10). The depth is the
+    weighted midpoint over the weights' sum (a NaN reads +inf), clamped to
+    the least and greatest depth of the call. -> (comp (..., C) before the
+    x 2 - 1, depth (...), weights (..., S - 1))."""
+    mid = lambda t: 0.5 * (t[..., :-1] + t[..., 1:])
+    deltas = z_vals[..., 1:] - z_vals[..., :-1]
+    colors_mid = (colors[..., :-1, :] + colors[..., 1:, :]) / 2
+    density = torch.nn.functional.softplus(mid(sigmas) - 1)
+    alpha = 1 - torch.exp(-density * deltas)
+    shifted = torch.cat([torch.ones_like(alpha[..., :1]),
+                         1 - alpha + 1e-10], dim=-1)
+    weights = alpha * torch.cumprod(shifted, dim=-1)[..., :-1]
+    comp = torch.sum(weights[..., None] * colors_mid, dim=-2)
+    depth = torch.sum(weights * mid(z_vals), dim=-1) / weights.sum(-1)
+    depth = torch.nan_to_num(depth, float("inf"))
+    depth = torch.clamp(depth, torch.min(z_vals), torch.max(z_vals))
+    return comp, depth, weights
+
+
+def smooth_importance_weights(weights: torch.Tensor) -> torch.Tensor:
+    """EG3D's sample_importance smoothing of the proposal weights (..., L):
+    max-pool (2, stride 1, pad 1), avg-pool (2, stride 1), plus 0.01.
+    -> (..., L)."""
+    shape = weights.shape
+    w = weights.reshape(-1, 1, shape[-1])
+    w = torch.nn.functional.max_pool1d(w, 2, 1, padding=1)
+    w = torch.nn.functional.avg_pool1d(w, 2, 1)
+    return w.reshape(shape) + 0.01

@@ -172,3 +172,89 @@ def transform_rays(n: int, ray_dirs_cam: torch.Tensor, z_vals: torch.Tensor,
     return TransformedRays(z_vals=z, ray_dirs=dirs_world,
                            ray_origins=origins_world, pitch=cam.pitch,
                            yaw=cam.yaw)
+
+
+# ---------------------------------------------------------------------------
+# EG3D's camera (NVlabs/eg3d camera_utils.py::LookAtPoseSampler,
+# create_cam2world_matrix, FOV_to_intrinsics; volumetric_rendering/
+# ray_sampler.py::RaySampler)
+# ---------------------------------------------------------------------------
+
+EG3D_FOCAL = 4.2647     # FOV_to_intrinsics(18.837): 1 / (tan(fov / 2) 1.414)
+EG3D_RADIUS = 2.7
+EG3D_PIVOT = (0.0, 0.0, 0.2)
+
+
+def lookat_cam2world(yaw: torch.Tensor, pitch: torch.Tensor) -> torch.Tensor:
+    """LookAtPoseSampler at the angles yaw, pitch (B, 1): the camera on the
+    sphere of EG3D_RADIUS about the origin, looking at EG3D_PIVOT; its
+    cam2world rotation columns (right, up, forward) with up seeded at +Y.
+    -> (B, 4, 4)."""
+    v = pitch.clamp(1e-5, math.pi - 1e-5) / math.pi
+    phi = torch.arccos(1 - 2 * v)
+    r = EG3D_RADIUS
+    origin = torch.cat([r * torch.sin(phi) * torch.cos(math.pi - yaw),
+                        r * torch.cos(phi),
+                        r * torch.sin(phi) * torch.sin(math.pi - yaw)], dim=-1)
+    look = torch.tensor(EG3D_PIVOT, dtype=origin.dtype, device=origin.device)
+    forward = normalize_vecs(look - origin)
+    up0 = torch.tensor([0.0, 1.0, 0.0], dtype=origin.dtype,
+                       device=origin.device).expand_as(forward)
+    right = -normalize_vecs(torch.linalg.cross(up0, forward, dim=-1))
+    up = normalize_vecs(torch.linalg.cross(forward, right, dim=-1))
+    eye = torch.eye(4, dtype=origin.dtype, device=origin.device)
+    rotation = eye.repeat(origin.shape[0], 1, 1)
+    rotation[:, :3, :3] = torch.stack([right, up, forward], dim=-1)
+    translation = eye.repeat(origin.shape[0], 1, 1)
+    translation[:, :3, 3] = origin
+    return translation @ rotation
+
+
+def eg3d_intrinsics(batch: int, device="cpu") -> torch.Tensor:
+    """Normalised intrinsics (B, 3, 3): EG3D_FOCAL, principal point 0.5."""
+    f = EG3D_FOCAL
+    k = torch.tensor([[f, 0.0, 0.5], [0.0, f, 0.5], [0.0, 0.0, 1.0]],
+                     device=device)
+    return k.expand(batch, 3, 3).contiguous()
+
+
+def eg3d_label(cam2world: torch.Tensor,
+               intrinsics: torch.Tensor) -> torch.Tensor:
+    """The conditioning label c (B, 25): cam2world's 16 values, then the
+    intrinsics' 9, row-major."""
+    b = cam2world.shape[0]
+    return torch.cat([cam2world.reshape(b, 16), intrinsics.reshape(b, 9)],
+                     dim=1)
+
+
+def eg3d_rays(c: torch.Tensor, resolution: int):
+    """RaySampler: rays through the pixel centres of a resolution^2 image
+    for the cameras of label c (B, 25). -> origins, unit directions
+    (B, resolution^2, 3), rows top to bottom."""
+    b = c.shape[0]
+    c2w = c[:, :16].reshape(b, 4, 4)
+    k = c[:, 16:25].reshape(b, 3, 3)
+    fx, fy = k[:, 0, 0, None], k[:, 1, 1, None]
+    cx, cy, sk = k[:, 0, 2, None], k[:, 1, 2, None], k[:, 0, 1, None]
+    ar = torch.arange(resolution, dtype=torch.float32, device=c.device)
+    uv = torch.stack(torch.meshgrid(ar, ar, indexing="ij")) \
+        * (1.0 / resolution) + (0.5 / resolution)
+    uv = uv.flip(0).reshape(2, -1).T                     # (R, 2): (x, y)
+    x_cam, y_cam = uv[None, :, 0], uv[None, :, 1]
+    x_lift = (x_cam - cx + cy * sk / fy - sk * y_cam / fy) / fx
+    y_lift = (y_cam - cy) / fy
+    ones = torch.ones_like(x_lift)
+    cam = torch.stack([x_lift, y_lift, ones, ones], dim=-1)
+    world = torch.bmm(c2w, cam.permute(0, 2, 1)).permute(0, 2, 1)[..., :3]
+    origin = c2w[:, :3, 3]
+    dirs = torch.nn.functional.normalize(world - origin[:, None, :], dim=2)
+    return origin[:, None, :].expand_as(dirs).contiguous(), dirs
+
+
+def eg3d_depths(jitter: torch.Tensor, ray_start: float, ray_end: float
+                ) -> torch.Tensor:
+    """sample_stratified: linspace(ray_start, ray_end, S) plus U[0, 1)
+    draws `jitter` (B, R, S) times the spacing."""
+    s = jitter.shape[-1]
+    z = torch.linspace(ray_start, ray_end, s, device=jitter.device)
+    return z + jitter * ((ray_end - ray_start) / (s - 1))

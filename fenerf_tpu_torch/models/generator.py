@@ -4,8 +4,11 @@ extraction's voxel_points and eval_volume for the FiLM-SIREN family;
 render_grid_from_z and eval_volume_grid for the latent-grid family; the
 same over several devices (render_core's strips of rows and the lattice's
 slabs, with render_image_sharded / render_grid_sharded and
-eval_volume_sharded / eval_volume_grid_sharded naming them); the
-family dispatch get_any_config / init_any_field / render_any).
+eval_volume_sharded / eval_volume_grid_sharded naming them); render_eg3d
+for EG3D's tri-plane family (nn/triplane_field.py: its camera, its
+importance renderer and MipRayMarcher2 in the same ray blocks and spans,
+the super-resolution); the family dispatch get_any_config /
+init_any_field / render_any).
 
 Pipeline: ray grid -> stratified jitter -> camera -> cam2world -> coarse
 field eval -> proposal weights -> sample_pdf -> fine field eval ->
@@ -38,7 +41,9 @@ from fenerf_tpu_torch.core import integrate as integ
 from fenerf_tpu_torch.core import rays as raylib
 from fenerf_tpu_torch.nn import fields
 from fenerf_tpu_torch.nn import latent_grid_field as lgf
+from fenerf_tpu_torch.nn import triplane_field as tpf
 from fenerf_tpu_torch.nn.neural_renderer import apply_neural_renderer
+from fenerf_tpu_torch.utils.precision import exact_matmuls
 from fenerf_tpu_torch.utils.profiling import span
 
 
@@ -611,9 +616,12 @@ def render_grid_sharded(params, gcfg: lgf.GridFieldConfig,
 # ---------------------------------------------------------------------------
 
 def get_any_config(model: str, **kwargs):
-    """FieldConfig or GridFieldConfig by the reference's model name."""
+    """FieldConfig, GridFieldConfig or TriPlaneConfig by the model's
+    published class name."""
     if lgf.is_grid_model(model):
         return lgf.get_grid_config(model, **kwargs)
+    if tpf.is_triplane_model(model):
+        return tpf.get_triplane_config(model, **kwargs)
     return fields.get_config(model, **kwargs)
 
 
@@ -621,9 +629,15 @@ def is_grid_config(cfg) -> bool:
     return isinstance(cfg, lgf.GridFieldConfig)
 
 
+def is_triplane_config(cfg) -> bool:
+    return isinstance(cfg, tpf.TriPlaneConfig)
+
+
 def init_any_field(gen: torch.Generator, cfg, device="cpu"):
     if is_grid_config(cfg):
         return lgf.init_grid_field(gen, cfg, device)
+    if is_triplane_config(cfg):
+        return tpf.init_triplane_generator(gen, cfg, device)
     return fields.init_field(gen, cfg, device)
 
 
@@ -654,6 +668,102 @@ def render_truncated(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,
     return render(params, fcfg, rcfg, film_geo, film_app,
                   batch_size=z_geo.shape[0], noise_std=noise_std,
                   camera=camera, generator=generator, draws=draws)
+
+
+# ---------------------------------------------------------------------------
+# EG3D's tri-plane family (nn/triplane_field.py)
+# ---------------------------------------------------------------------------
+
+def eg3d_render_config(img_size: int = 128, num_steps: int = 48,
+                       ray_chunk: int = 4096, ray_start: float = 2.25,
+                       ray_end: float = 3.3) -> RenderConfig:
+    """EG3D's ffhq rendering: 128^2 neural rendering, 48 stratified + 48
+    importance samples on [2.25, 3.3] (render_eg3d marches them with
+    MipRayMarcher2, no background)."""
+    return RenderConfig(img_size=img_size, num_steps=num_steps,
+                        ray_start=ray_start, ray_end=ray_end,
+                        ray_chunk=ray_chunk)
+
+
+def draw_eg3d(gen: torch.Generator, batch: int, rcfg: RenderConfig,
+              device="cpu") -> RenderDraws:
+    """One EG3D render's draws: the stratified jitter and the importance
+    uniforms, U[0, 1) (B, R, S) each."""
+    shape = (batch, rcfg.n_rays, rcfg.num_steps)
+    jitter = torch.rand(shape, generator=gen, device=device)
+    u = torch.rand(shape, generator=gen, device=device)
+    return RenderDraws(jitter, None, None, RayNoise(u, None, None))
+
+
+def _shade_mip(field_fn, output_dim, rcfg, origins, dirs, z_vals, u):
+    """EG3D's ImportanceRenderer on a block of rays (render_core's ray
+    blocks and field span): the coarse pass, the proposal from
+    MipRayMarcher2's weights smoothed (integrate.py::
+    smooth_importance_weights), num_steps depths drawn at the uniforms u
+    over the coarse midpoints with the weights' interior, the fine pass,
+    both sample sets merged by sorting and marched again. Returns the
+    composite, depth and total opacity."""
+    b, rb, s = z_vals.shape
+    drs = dirs[:, :, None, :].expand(b, rb, s, 3).reshape(b, rb * s, 3)
+
+    def eval_at(zs):
+        pts = origins[:, :, None, :] + dirs[:, :, None, :] * zs[..., None]
+        with span("fenerf/render/field", rows=b * rb * s):
+            out = field_fn(pts.reshape(b, rb * s, 3), drs)
+        return out.reshape(b, rb, s, output_dim)
+
+    coarse = eval_at(z_vals)
+    with torch.no_grad():
+        w = integ.mip_march(coarse[..., :-1], coarse[..., -1], z_vals)[2]
+        w = integ.smooth_importance_weights(w)
+        fine_z = integ.sample_pdf(integ.midpoints(z_vals), w[..., 1:-1],
+                                  rcfg.num_steps, u=u)
+    fine = eval_at(fine_z)
+    all_z, order = torch.sort(torch.cat([z_vals, fine_z], dim=-1), dim=-1)
+    out = torch.cat([coarse, fine], dim=-2)
+    out = out.gather(-2, order[..., None].expand_as(out))
+    comp, depth, weights = integ.mip_march(out[..., :-1], out[..., -1], all_z)
+    return comp, depth, weights.sum(-1)
+
+
+def render_eg3d(params, cfg: tpf.TriPlaneConfig, rcfg: RenderConfig,
+                z: torch.Tensor, c: torch.Tensor,
+                camera: torch.Tensor | None = None, psi: float = 1.0,
+                generator: torch.Generator | None = None,
+                draws: RenderDraws | None = None) -> dict[str, torch.Tensor]:
+    """TriPlaneGenerator.forward: z (B, z_dim) and the conditioning label c
+    (B, 25) -> w -> the backbone's planes -> the 32-channel feature image
+    rendered from `camera` (a label (B, 25); default c) in render_core's
+    ray blocks and spans -> super-resolved (the backbone's noise in mode
+    'const', none in the super-resolution). Randomness comes whole in
+    `draws` (draw_eg3d), else from `generator` (default: seeded 0).
+
+    Returns image (B, 3, img, img) and image_raw (B, 3, n, n) in [-1, 1],
+    depth and opacity (B, n, n), features (B, plane_ch, n, n)."""
+    b, dev, n = z.shape[0], z.device, rcfg.img_size
+    camera = c if camera is None else camera
+    if draws is None:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        draws = draw_eg3d(generator, b, rcfg, dev)
+    w = tpf.mapping(params, z, c, psi)
+    pl = tpf.planes(params, cfg, w)
+    with span("fenerf/render"), exact_matmuls():
+        origins, dirs = raylib.eg3d_rays(camera, n)
+        z_vals = raylib.eg3d_depths(draws.jitter, rcfg.ray_start,
+                                    rcfg.ray_end)
+        field = tpf.field_fn(params, cfg, pl)
+        chunk = rcfg.ray_chunk or n * n
+        parts = [_shade_mip(field, cfg.output_dim, rcfg,
+                            *(t[:, i:i + chunk] for t in
+                              (origins, dirs, z_vals, draws.noise.u)))
+                 for i in range(0, n * n, chunk)]
+        comp, depth, wsum = (torch.cat(ts, dim=1) for ts in zip(*parts))
+        feats = (comp * 2 - 1).reshape(b, n, n, -1).permute(0, 3, 1, 2)
+    image = tpf.superres(params, cfg, feats[:, :3], feats, w)
+    return {"image": image, "image_raw": feats[:, :3],
+            "depth": depth.reshape(b, n, n),
+            "opacity": wsum.reshape(b, n, n), "features": feats}
 
 
 def render_hd(params, fcfg: fields.FieldConfig, rcfg: RenderConfig,

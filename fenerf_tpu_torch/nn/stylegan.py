@@ -66,8 +66,12 @@ def modulated_conv2d(p: Params, x: torch.Tensor, z: torch.Tensor,
                      demodulate: bool = True, upsample: bool = False,
                      downsample: bool = False, activate: bool = True,
                      bias: bool = True,
-                     blur_kernel=(1, 3, 3, 1)) -> torch.Tensor:
-    """x (B, C_in, H, W), z (B, z_dim) -> (B, C_out, H', W')."""
+                     blur_kernel=(1, 3, 3, 1),
+                     noise: torch.Tensor | None = None) -> torch.Tensor:
+    """x (B, C_in, H, W), z (B, z_dim) -> (B, C_out, H', W'). `noise`
+    (broadcast to the output) is added after the demodulation and the
+    resampling, before the bias and the activation (StyleGAN2's noise
+    input)."""
     ksize, _, in_ch, out_ch = p["w"].shape
     scale = 1.0 / math.sqrt(in_ch * ksize * ksize)
     gamma = equal_linear(p["mod"], z)            # (B, in)
@@ -110,6 +114,8 @@ def modulated_conv2d(p: Params, x: torch.Tensor, z: torch.Tensor,
         if demodulate:
             out = out * demod[:, :, None, None]
 
+    if noise is not None:
+        out = out + noise
     if activate:
         out = fused_leaky_relu(out, p["b"])
     elif bias:
@@ -190,3 +196,118 @@ def style_generator_2d(p: Params, z: torch.Tensor,
         skip = modulated_conv2d(p["out_rgb"], out, w, demodulate=False,
                                 activate=False)
     return skip
+
+
+# ---------------------------------------------------------------------------
+# EG3D's StyleGAN2 pieces: the camera-conditioned mapping network and the
+# skip-architecture synthesis network (training/networks_stylegan2.py of
+# NVlabs/eg3d), on the layers above
+# ---------------------------------------------------------------------------
+
+def init_conditioned_mapping(gen, z_dim: int, c_dim: int, w_dim: int,
+                             depth: int, device="cpu") -> Params:
+    """MappingNetwork with a conditioning label: c -> FC (lr 1) -> w_dim,
+    then `depth` FC layers (lr 0.01) on [z | embedded c]; w_avg is the
+    tracked average w that truncation lerps toward."""
+    return {"embed": init_equal_linear(gen, c_dim, w_dim, device),
+            "fc": [init_equal_linear(gen, z_dim + w_dim if i == 0 else w_dim,
+                                     w_dim, device, lr_mul=0.01)
+                   for i in range(depth)],
+            "w_avg": torch.zeros((w_dim,), device=device)}
+
+
+def conditioned_mapping(p: Params, z: torch.Tensor, c: torch.Tensor,
+                        psi: float = 1.0) -> torch.Tensor:
+    """z (B, z_dim), c (B, c_dim) -> w (B, w_dim): z and the embedded c each
+    normalised by their second moment, concatenated, then the FC layers
+    with LeakyReLU (gain sqrt 2); psi lerps w toward w_avg. Every layer of
+    the synthesis takes this one w (num_ws copies of it)."""
+    x = pixel_norm(z)
+    y = pixel_norm(equal_linear(p["embed"], c))
+    x = torch.cat([x, y], dim=1)
+    for lyr in p["fc"]:
+        x = equal_linear(lyr, x, lr_mul=0.01, activate=True)
+    if psi != 1.0:
+        x = torch.lerp(p["w_avg"][None], x, psi)
+    return x
+
+
+def init_synthesis_layer(gen, in_ch: int, out_ch: int, w_dim: int,
+                         resolution: int, device="cpu") -> Params:
+    """A 3 x 3 modulated convolution with its noise input: a constant
+    (resolution, resolution) noise image and its learned strength."""
+    p = init_modulated_conv(gen, in_ch, out_ch, 3, w_dim, device)
+    p["noise_const"] = winit.normal(gen, (resolution, resolution), device)
+    p["noise_strength"] = torch.zeros((), device=device)
+    return p
+
+
+def synthesis_layer(p: Params, x: torch.Tensor, w: torch.Tensor,
+                    up: bool = False, noise_mode: str = "const"
+                    ) -> torch.Tensor:
+    """SynthesisLayer: modulated, demodulated, the noise ('const': the
+    layer's constant image times its strength; 'none': no noise), bias,
+    LeakyReLU x sqrt 2, no clamp."""
+    noise = (p["noise_const"] * p["noise_strength"]
+             if noise_mode == "const" else None)
+    return modulated_conv2d(p, x, w, upsample=up, noise=noise)
+
+
+def init_synthesis_block(gen, in_ch: int, out_ch: int, w_dim: int,
+                         resolution: int, img_ch: int,
+                         device="cpu") -> Params:
+    """SynthesisBlock (skip architecture): a learned constant (in_ch 0) or
+    conv0 (up 2), then conv1, then a 1 x 1 ToRGB to img_ch channels."""
+    p: dict[str, Any] = {}
+    if in_ch == 0:
+        p["const"] = winit.normal(gen, (out_ch, resolution, resolution),
+                                  device)
+    else:
+        p["conv0"] = init_synthesis_layer(gen, in_ch, out_ch, w_dim,
+                                          resolution, device)
+    p["conv1"] = init_synthesis_layer(gen, out_ch, out_ch, w_dim, resolution,
+                                      device)
+    p["torgb"] = init_modulated_conv(gen, out_ch, img_ch, 1, w_dim, device)
+    return p
+
+
+def synthesis_block(p: Params, x: torch.Tensor | None,
+                    img: torch.Tensor | None, w: torch.Tensor,
+                    noise_mode: str = "const"):
+    """-> (x, img): the block's features and the running skip image (the
+    previous image upsampled 2x with the [1, 3, 3, 1] filter, plus this
+    block's ToRGB, which is not demodulated)."""
+    if "const" in p:
+        x = p["const"][None].expand((w.shape[0],) + tuple(p["const"].shape))
+    else:
+        x = synthesis_layer(p["conv0"], x, w, up=True, noise_mode=noise_mode)
+    x = synthesis_layer(p["conv1"], x, w, noise_mode=noise_mode)
+    y = modulated_conv2d(p["torgb"], x, w, demodulate=False, activate=False)
+    img = y if img is None else upsample2d(img) + y
+    return x, img
+
+
+def synthesis_channels(resolution: int, channel_base: int = 32768,
+                       channel_max: int = 512) -> dict[int, int]:
+    """{block resolution: channels}, min(channel_base / res, channel_max)
+    for 4, 8, ..., resolution."""
+    res = [2 ** i for i in range(2, int(math.log2(resolution)) + 1)]
+    return {r: min(channel_base // r, channel_max) for r in res}
+
+
+def init_synthesis_network(gen, w_dim: int, resolution: int, img_ch: int,
+                           channel_base: int = 32768, channel_max: int = 512,
+                           device="cpu") -> list:
+    """SynthesisNetwork's blocks, 4 x 4 up to `resolution`."""
+    ch = synthesis_channels(resolution, channel_base, channel_max)
+    return [init_synthesis_block(gen, ch.get(r // 2, 0), c, w_dim, r,
+                                 img_ch, device) for r, c in ch.items()]
+
+
+def synthesis_network(blocks: list, w: torch.Tensor,
+                      noise_mode: str = "const") -> torch.Tensor:
+    """w (B, w_dim) -> the skip image (B, img_ch, res, res)."""
+    x = img = None
+    for p in blocks:
+        x, img = synthesis_block(p, x, img, w, noise_mode)
+    return img

@@ -40,6 +40,7 @@ import torch.distributed as dist
 from fenerf_tpu_torch.compat.jax_bridge import tree_leaves, tree_unflatten
 from fenerf_tpu_torch.models.generator import RayNoise, RenderDraws
 from fenerf_tpu_torch.train import loop as looplib
+from fenerf_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,11 +61,14 @@ class Group:
 
     def sum_tree(self, tree):
         """The sum over the ranks of a tree of tensors (a gradient), through
-        one flat f32 all-reduce; a new tree of f32 leaves."""
+        one flat f32 all-reduce (the span fenerf/train/allreduce, counting
+        its bytes); a new tree of f32 leaves."""
         if self.world <= 1:
             return tree
         leaves = tree_leaves(tree)
-        buf = self.all_reduce(_flat(leaves, torch.float32))
+        buf = _flat(leaves, torch.float32)
+        with span("fenerf/train/allreduce", bytes=4 * buf.numel()):
+            self.all_reduce(buf)
         out, off = [], 0
         for t in leaves:
             out.append(buf[off:off + t.numel()].view(t.shape))

@@ -12,6 +12,7 @@ from fenerf_tpu_torch.compat.jax_bridge import tree_leaves
 from fenerf_tpu_torch.models import generator as tgen
 from fenerf_tpu_torch.train import curriculum as tcur
 from fenerf_tpu_torch.train import loop as tloop
+from fenerf_tpu_torch.train import sharding
 from fenerf_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -110,6 +111,21 @@ def test_trace_writes_the_span_table(spans, tmp_path):
     assert table["fenerf/x"]["calls"] == 1
     assert table["fenerf/x"]["counts"] == {"rows": 4}
     assert (tmp_path / "trace.json").is_file()
+
+
+def test_allreduce_span_counts_its_bytes(spans, monkeypatch):
+    """Group.sum_tree's one flat all-reduce per call, under the span
+    fenerf/train/allreduce with its f32 bytes (the collective stubbed: a
+    second rank that holds the same tree)."""
+    monkeypatch.setattr(torch.distributed, "all_reduce",
+                        lambda t, op=None: t.mul_(2))
+    group = dataclasses.replace(sharding.Group(), world=2)
+    tree = {"a": torch.ones(2, 3), "b": torch.arange(5.0)}
+    out, names = _profiled(lambda: group.sum_tree(tree))
+    assert "fenerf/train/allreduce" in names
+    torch.testing.assert_close(out["b"], 2 * tree["b"])
+    t = profiling.span_totals()["fenerf/train/allreduce"]
+    assert t["calls"] == 1 and t["counts"] == {"bytes": 4 * 11}
 
 
 def test_render_bit_equal_with_and_without_profiler(spans):
